@@ -1,0 +1,161 @@
+"""Builds the port's CUDA kernels with nvcc and loads them with ctypes.
+
+Each `csrc/<name>.cu` is compiled on its own, all sources in parallel,
+into `_build/lib<name>-<hash>.so` beside this file (the hash covers the
+sources and the flags, so an edited source is rebuilt).  The libraries
+expose plain C entry points that take device pointers and the CUDA
+stream as `void*`, and return a `cudaError_t` that the Python wrappers
+turn into an exception.
+
+Every kernel wrapper counts its launches here (`count`), so a caller can
+show that a run went through the kernels: `reset_launch_counts()`
+before the run, `launch_counts()` after it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+SOURCES = ("mul", "step", "correct")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_counts: dict[str, int] = {}
+build_seconds: float | None = None
+
+
+def count(name: str) -> None:
+    """Record one launch of kernel `name` (called by its wrapper)."""
+    _counts[name] = _counts.get(name, 0) + 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    _counts.clear()
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    cand = Path(home) / "bin" / "nvcc" if home else None
+    if cand is not None and cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    """argtypes/restype of every C entry point (pointers and the stream
+    as c_void_p, so ctypes does not cut them to 32 bits)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sigs = {
+        "mul_batch_launch": [P, P, P, P, I, I, I, I, P],
+        "mul_batch_scratch_bytes": [I],
+        "powdiff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
+        "update_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
+        "step_scratch_bytes": [I],
+        "correct_launch": [P, P, P, P, P, P, P, I, I, P],
+        "correct_scratch_bytes": [I],
+    }
+    for fn, args in sigs.items():
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes = args
+            f.restype = ctypes.c_size_t if fn.endswith("_bytes") else I
+
+
+def build_all() -> dict[str, ctypes.CDLL]:
+    """Compile (where not built yet) and load every kernel library.
+    Raises with nvcc's output when a build fails."""
+    global build_seconds
+    with _lock:
+        if len(_libs) == len(SOURCES):
+            return _libs
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in SOURCES:
+            so = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+            if not so.exists():
+                tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       str(CSRC / f"{name}.cu")]
+                procs[name] = (subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True), tmp, so)
+        logs = {}
+        for name, (proc, tmp, so) in procs.items():
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                for _, (p, _t, _s) in procs.items():
+                    p.wait()
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, so)
+        (BUILD_DIR / "ptxas.log").write_text(
+            "".join(f"== {n}.cu\n{o}" for n, o in logs.items()))
+        for name in SOURCES:
+            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest(name)}.so"))
+            _declare(lib)
+            _libs[name] = lib
+        build_seconds = time.perf_counter() - t0
+        return _libs
+
+
+def lib(name: str) -> ctypes.CDLL:
+    return build_all()[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed with cudaError_t {err}")
+
+
+# Dynamic shared memory a block may use on Hopper; the kernels stage
+# their product operands there as 32-bit words.
+SMEM_BYTES = 227 * 1024
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_limbs(name: str, t: torch.Tensor, shape=None) -> None:
+    """Raise unless t is a contiguous int32 CUDA tensor (of `shape`)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: kernel needs a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous int32, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
