@@ -379,19 +379,26 @@ class Smoke:
                            st["active"])
                 row = dict(bits=bits, batch=batch, iter=i, win=win,
                            active=act)
-                nbytes = 4 * batch * (3 * fw + 4)
+                # bytes the functions need: powdiff reads win limbs of v
+                # (from offset s) and of w, writes x at full width, and
+                # moves 4 scalars per lane; update reads win limbs of w
+                # and x and writes full width on an active lane, copies
+                # w on an inactive one, and reads 4 scalars per lane
+                pd_bytes = 4 * batch * (2 * win + fw + 4)
+                up_bytes = 4 * (act * (2 * win + fw)
+                                + (batch - act) * 2 * fw + 4 * batch)
                 items.append((row, "powdiff",
                               lambda a=pd_args, w=win: F.powdiff_cuda(
                                   *a, win=w),
                               lambda a=pd_args, w=win: F.powdiff_reference(
                                   *a, win=w),
-                              (batch * win * win, nbytes)))
+                              (batch * win * win, pd_bytes)))
                 items.append((row, "update",
                               lambda a=up_args, w=win: F.update_cuda(
                                   *a, win=w),
                               lambda a=up_args, w=win: F.update_reference(
                                   *a, win=w),
-                              (act * win * win, nbytes)))
+                              (act * win * win, up_bytes)))
             c = rec["correct"]
             W = c["u"].shape[1]
             cargs = (c["u"], c["v"], c["si"])

@@ -95,7 +95,7 @@ extern "C" size_t correct_scratch_bytes(int full_w) {
 extern "C" int correct_launch(const void* u, const void* v, const void* si,
                               const void* h, void* q, void* r, void* scratch,
                               int batch, int full_w, void* stream) {
-  return (int)launch(correct_kernel, batch, 8 * (size_t)full_w,
+  return (int)launch<correct_kernel>(batch, 8 * (size_t)full_w,
                      (cudaStream_t)stream, (const int32_t*)u,
                      (const int32_t*)v, (const int32_t*)si, (const int32_t*)h,
                      (int32_t*)q, (int32_t*)r, (unsigned char*)scratch,

@@ -20,6 +20,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace limbs {
@@ -239,15 +240,31 @@ __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~(size_t)15;
 }
 
-// Allows `bytes` of dynamic shared memory for `kernel`, launches it
-// with one block per instance, and reports a refused launch.
-template <class K, class... Args>
-cudaError_t launch(K kernel, int batch, size_t bytes, cudaStream_t stream,
+constexpr int kMaxDevices = 64;
+
+// Launches `kernel` with one block per instance and `bytes` of dynamic
+// shared memory, and reports a refused launch.  The kernel's shared
+// memory allowance on the current device is raised only when a launch
+// needs more than was allowed before, not on every launch.
+template <auto kernel, class... Args>
+cudaError_t launch(int batch, size_t bytes, cudaStream_t stream,
                    Args... args) {
   if (batch <= 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static std::mutex mu;
+  static size_t allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (bytes > allowed[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return err;
+      allowed[dev] = bytes;
+    }
+  }
   kernel<<<batch, kThreads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }

@@ -42,7 +42,7 @@ extern "C" int mul_batch_launch(const void* u, const void* v, void* out,
                                 int out_width, void* stream) {
   const size_t smem =
       sizeof(uint32_t) * (size_t)(min(wu, out_width) + min(wv, out_width));
-  return (int)launch(mul_batch_kernel, batch, smem, (cudaStream_t)stream,
+  return (int)launch<mul_batch_kernel>(batch, smem, (cudaStream_t)stream,
                      (const int32_t*)u, (const int32_t*)v, (int32_t*)out,
                      (unsigned char*)scratch, wu, wv, out_width);
 }

@@ -190,7 +190,7 @@ extern "C" int powdiff_launch(const void* v, const void* w, const void* hpd,
                               const void* lpd, const void* s, void* sign,
                               void* x, void* scratch, int batch, int full_w,
                               int win, void* stream) {
-  return (int)launch(powdiff_kernel, batch, 8 * (size_t)win,
+  return (int)launch<powdiff_kernel>(batch, 8 * (size_t)win,
                      (cudaStream_t)stream, (const int32_t*)v,
                      (const int32_t*)w, (const int32_t*)hpd,
                      (const int32_t*)lpd, (const int32_t*)s, (int32_t*)sign,
@@ -201,7 +201,7 @@ extern "C" int update_launch(const void* w, const void* x, const void* sign,
                              const void* h, const void* m, const void* act,
                              void* out, void* scratch, int batch, int full_w,
                              int win, void* stream) {
-  return (int)launch(update_kernel, batch, 8 * (size_t)win,
+  return (int)launch<update_kernel>(batch, 8 * (size_t)win,
                      (cudaStream_t)stream, (const int32_t*)w,
                      (const int32_t*)x, (const int32_t*)sign,
                      (const int32_t*)h, (const int32_t*)m,

@@ -146,6 +146,13 @@ def _operands(full_w: int, batch: int, staged: int, **arrs) -> None:
 def powdiff_cuda(v, w, hpd, lpd, s, *, win: int):
     """Kernel of `powdiff_reference`: returns sign (batch,) bool and
     x (batch, W)."""
+    sign, x = _powdiff_launch(v, w, hpd, lpd, s, win=win)
+    return sign != 0, x
+
+
+def _powdiff_launch(v, w, hpd, lpd, s, *, win: int):
+    """The powdiff launch; the sign stays (batch,) int32 0/1, as
+    `update_cuda` takes it."""
     batch, full_w = v.shape
     if not 1 <= win <= full_w:
         raise ValueError(f"window {win} outside [1, {full_w}]")
@@ -164,11 +171,12 @@ def powdiff_cuda(v, w, hpd, lpd, s, *, win: int):
             stream_ptr(v))
         build.check(err, "powdiff kernel")
         build.count("powdiff")
-    return sign != 0, x
+    return sign, x
 
 
 def update_cuda(w, x, sign, h, m, active, *, win: int):
-    """Kernel of `update_reference`: the new full-width iterate."""
+    """Kernel of `update_reference`: the new full-width iterate.  `sign`
+    is bool or int32 0/1 (int32 costs no conversion)."""
     batch, full_w = w.shape
     if not 1 <= win <= full_w:
         raise ValueError(f"window {win} outside [1, {full_w}]")
@@ -191,7 +199,7 @@ def update_cuda(w, x, sign, h, m, active, *, win: int):
 
 def step_cuda(v, w, *, h, m, l, s, active, g: int, win: int):
     """One Refine iteration in two launches (powdiff, update)."""
-    sign, x = powdiff_cuda(v, w, h - m, l - g, s, win=win)
+    sign, x = _powdiff_launch(v, w, h - m, l - g, s, win=win)
     return update_cuda(w, x, sign, h, m, active, win=win)
 
 

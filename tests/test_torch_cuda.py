@@ -78,6 +78,11 @@ def test_step_kernels_match_plain(dev, full_w, win):
     got = F.update_cuda(*args, win=win)
     torch.cuda.synchronize()
     assert torch.equal(got, F.update_reference(*args, win=win))
+    kw = dict(h=st["h"], m=st["m"], l=st["l"], s=st["s"],
+              active=st["active"], g=2, win=win)
+    got = F.step_cuda(st["v"], st["w"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.step_reference(st["v"], st["w"], **kw))
 
 
 @pytest.mark.parametrize("w", [12, 40])
