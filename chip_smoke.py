@@ -5,41 +5,65 @@
 
 Phases, each of which raises on failure:
   1. the card (nvidia-smi name and power limit);
-  2. build the four kernels from src/repro_torch/kernels/csrc with nvcc;
+  2. build the five kernels from src/repro_torch/kernels/csrc with nvcc;
   3. every kernel against its plain PyTorch version on the card, bit for
-     bit, at the main path's shapes: divmod_batch at 2^15..2^18 bits with
+     bit, at the main paths' shapes: divmod_batch at 2^15..2^18 bits with
      each Refine step and the finalization run through kernel AND plain
      version on the same inputs, synthetic adversarial Refine states at
-     the 2^15-bit windows, and the standalone product at 2^15 and 2^18
-     bits;
-  4. the main path: divmod_batch at 2^15/2^16/2^17/2^18 bits (batches
-     256/128/64/32), every lane checked against Python divmod and on the
-     card as q*v + r == u, with exactly 2*refine_iters(M) + 1 fused
-     launches per division, then the division service answering three
-     requests (one split across buckets);
-  5. timing with CUDA events (median of 5 after a warm-up): each kernel
-     at each window it runs at, divmod_batch per precision.
+     the 2^15-bit windows, the standalone product at 2^15 and 2^18 bits;
+     then the Barrett kernel on adversarial operands at 2^15- and
+     2^17-bit moduli (lanes that take each correction branch, counted
+     in the plain version) and at the real states of the modular path
+     (precompute steps, reduce, modmul and a short modexp at 2^15/2^16/
+     2^17-bit moduli);
+  4. the division path: divmod_batch at 2^15/2^16/2^17/2^18 bits
+     (batches 256/128/64/32), every lane checked against Python divmod
+     and on the card as q*v + r == u, with exactly 2*refine_iters(M) + 1
+     fused launches per division, then the division service answering
+     three requests (one split across buckets);
+  5. the modular-arithmetic path: at 2^15/2^16/2^17-bit moduli the
+     Barrett precompute (30/32/34 launches), reduce_shared and
+     modmul_shared on 256/128/64 lanes (1 and 2 launches); at 2^15 bits
+     reduce_batch and modmul_batch with 64 per-lane moduli and
+     modexp_shared on 64 lanes with 256-bit exponents (674 launches);
+     every lane against Python % and pow; the 2^18-bit modulus raises;
+     then ModArithService answering reduce, modmul and modexp requests
+     against two interleaved moduli (one request split across buckets);
+  6. timing with CUDA events (median of 5 after a warm-up): each kernel
+     at each window it runs at, divmod_batch per precision; per modulus
+     size the precompute, reductions/s, modmuls/s, modexp (256-bit
+     exponents) and exponentiations/s, the device's busy share, and the
+     Barrett kernel's device time per launch against its bound.
 
-The kernel launch counters are set to 0 just before phase 4 and read
-just after it.  Details go to chiprun_out/chip_smoke.json.  The last
-line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launches, times and bounds.  Exits non-zero without
-a result when there is no CUDA device or no src/repro_torch beside it.
+The kernel launch counters are set to 0 just before each of phases 4
+and 5 and read just after it.  Details go to chiprun_out/chip_smoke.json.
+The last line is {"ok": true, "device": {...}}; the line before it lists
+the kernels with their launches, times and bounds.  Exits non-zero
+without a result when there is no CUDA device or no src/repro_torch
+beside it.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import random
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PRECISIONS = ((2 ** 15, 256), (2 ** 16, 128), (2 ** 17, 64), (2 ** 18, 32))
+# modulus bits and lanes of the modular-arithmetic path; 2^18-bit moduli
+# do not fit the kernels' shared-memory staging (an explicit error)
+MODULI = ((2 ** 15, 256), (2 ** 16, 128), (2 ** 17, 64))
+# modexp exponent limbs: 256-bit exponents, the ladder's depth cut to
+# fit the run's time limit (a full 2^15-bit exponent is ~41,000 modmuls)
+E_LIMBS = 16
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).  A
 # 16x16-bit limb product is 4 int8 sub-digit MACs = 8 int8 operations.
 PEAK_INT8_OPS = 1979e12
@@ -54,10 +78,18 @@ KERNELS = {
                "src/repro/kernels/fused.py:454"),
     "correct": ("src/repro_torch/kernels/csrc/correct.cu",
                 "src/repro/kernels/fused.py:468"),
+    "barrett": ("src/repro_torch/kernels/csrc/barrett.cu",
+                "src/repro/kernels/fused.py:486"),
 }
 GRID_TWINS = {"powdiff": "src/repro/kernels/fused.py:748",
               "update": "src/repro/kernels/fused.py:781",
-              "correct": "src/repro/kernels/fused.py:810"}
+              "correct": "src/repro/kernels/fused.py:810",
+              "barrett": "src/repro/kernels/fused.py:854"}
+# kernels each main path must launch
+PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
+                                  "correct"),
+                "modarith_path": ("mul_batch", "powdiff", "update",
+                                  "barrett")}
 
 
 def log(*a):
@@ -89,6 +121,44 @@ def operands(m: int, batch: int, seed: int):
     return us, vs
 
 
+def mod_operands(m: int, batch: int, seed: int):
+    """Operands of the modular path at an m-limb modulus: a shared
+    modulus with random limbs and its top limb set, per-lane moduli
+    with the edges first (1, B^k, all-0xFFFF, one limb, 3) then random
+    lengths; x < B^(2m) with edges (B^(2m) - 1, x < v, a multiple of
+    v, 0); a, b < B^m; 256-bit exponents with edges (0, 1, all ones)."""
+    B = 1 << 16
+    rnd = random.Random(seed)
+    v = rnd.getrandbits(16 * m) | 1 << (16 * m - 1)
+    vs = [rnd.getrandbits(16 * rnd.randint(1, m)) | 1 for _ in range(batch)]
+    vs[:5] = [1, B ** (m - 1), B ** m - 1, 0xFFFF, 3]
+    xs = [rnd.getrandbits(32 * m) for _ in range(batch)]
+    xs[:4] = [B ** (2 * m) - 1, 5, v * rnd.getrandbits(16 * m), 0]
+    xs[5] = vs[5] * rnd.getrandbits(16 * m)
+    a = [rnd.getrandbits(16 * m) for _ in range(batch)]
+    a[:3] = [0, 1, B ** m - 1]
+    b = [rnd.getrandbits(16 * m) for _ in range(batch)]
+    b[2] = B ** m - 1
+    e = [rnd.getrandbits(16 * E_LIMBS) for _ in range(batch)]
+    e[:3] = [0, 1, B ** E_LIMBS - 1]
+    return dict(v=v, vs=vs, x=xs, a=a, b=b, e=e)
+
+
+def _pow(args):
+    return pow(*args)
+
+
+def pow_all(triples) -> list[int]:
+    """pow(a, e, v) for each triple, on the host's cores (CPython's
+    modular reduction is quadratic: 0.7 s for one 256-bit exponent at a
+    2^15-bit modulus).  The pool is closed before this returns."""
+    triples = list(triples)
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(8, len(triples)),
+                             mp_context=ctx) as pool:
+        return list(pool.map(_pow, triples))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -106,14 +176,15 @@ def main() -> int:
 
 class Smoke:
     def __init__(self, torch, build):
-        from repro_torch.core import arith, bigint, shinv
-        from repro_torch.kernels import fused, ops
+        from repro_torch.core import arith, bigint, modarith, shinv
+        from repro_torch.kernels import bigmul, fused, ops
         from repro_torch.obs import costmodel
         from repro_torch.serving.bigint_service import BigintDivisionService
+        from repro_torch.serving.modexp_service import ModArithService
         self.torch, self.build = torch, build
-        self.A, self.bi, self.S = arith, bigint, shinv
-        self.F, self.K, self.CM = fused, ops, costmodel
-        self.Service = BigintDivisionService
+        self.A, self.bi, self.S, self.MA = arith, bigint, shinv, modarith
+        self.F, self.K, self.CM, self.bigmul = fused, ops, costmodel, bigmul
+        self.Service, self.ModService = BigintDivisionService, ModArithService
         self.dev = torch.device("cuda", 0)
         self.err = {k: 0 for k in KERNELS}     # max |kernel - plain|
         self.checked = {k: 0 for k in KERNELS}
@@ -162,15 +233,23 @@ class Smoke:
         log(f"build: {self.build.build_seconds:.1f} s "
             f"({time.perf_counter() - t0:.1f} s with loading)")
         self.phase("kernels_vs_plain", self.check_kernels)
-        self.build.reset_launch_counts()
-        self.phase("main_path", self.main_path)
-        launches = self.build.launch_counts()
-        log(f"main-path launches: {launches}")
-        for k in KERNELS:
-            if launches.get(k, 0) < 1:
-                raise AssertionError(f"kernel {k} never launched on the "
-                                     f"main path")
+        self.phase("barrett_vs_plain", self.check_barrett)
+        launches = {}
+        for name, fn in (("division_path", self.main_path),
+                         ("modarith_path", self.modarith_path)):
+            self.build.reset_launch_counts()
+            self.phase(name, fn)
+            got = self.build.launch_counts()
+            log(f"{name} launches: {got}")
+            for k in PATH_KERNELS[name]:
+                if got.get(k, 0) < 1:
+                    raise AssertionError(f"kernel {k} never launched on "
+                                         f"the {name}")
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            self.report.setdefault("path_launches", {})[name] = got
         self.phase("timing", self.timing)
+        self.phase("timing_modarith", self.timing_modarith)
         kernels = self.kernel_line(launches)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -485,10 +564,311 @@ class Smoke:
                         total - sum(d["us"] for d in ours.values()) / 1e3)
                     if per else None)
 
+    # -- phase 3b: the Barrett kernel against its plain version -------------
+
+    def barrett_lanes(self, m, seed):
+        """16 Barrett operands at W = barrett_width(m) with mu =
+        shinv_h(v) + lambda computed on the host: lanes built to take
+        `over` (lambda = 1, x = k v - 1 near B^(2m)) and `under`
+        (lambda = 0, x = k v), x = B^(2m) - 1, x < v, the edge moduli
+        (1, B^k, all-0xFFFF, one limb), and an arbitrary and a zero mu
+        on the last two lanes."""
+        MA, B = self.MA, 1 << 16
+        rnd = random.Random(seed)
+        W, h = MA.barrett_width(m), MA.barrett_h(m)
+        top = [rnd.getrandbits(16 * m) | 1 << (16 * m - 1) for _ in range(9)]
+        vs = top + [1, B ** (m - 1), B ** m - 1, 0xFFFF, 3, top[0], top[1]]
+        xs, lams = [], []
+        for i, v in enumerate(vs):
+            k = (B ** (2 * m) - 1) // v
+            xs.append([k * v - 1, k * v, rnd.getrandbits(32 * m)][i % 3])
+            lams.append(1 if i % 3 == 0 else i % 2)
+        xs[6], xs[7] = B ** (2 * m) - 1, vs[7] - 1
+        mus = [B ** h // v + lam for v, lam in zip(vs, lams)]
+        mus[-2], mus[-1] = rnd.getrandbits(16 * W), 0
+        return (self.tensor(xs, 2 * m), self.tensor(mus, W),
+                self.tensor(vs, m), h, xs, vs)
+
+    def count_branches(self, over, under):
+        self.branches["over"] += int(over.sum())
+        self.branches["under"] += int(under.sum())
+        self.branches["lanes"] += over.numel()
+
+    @contextmanager
+    def checking_modarith(self):
+        """Route every launch of the modular path (the precompute's
+        Refine steps, the products, the Barrett reductions) through
+        kernel AND plain version on the same inputs; count the Barrett
+        branches in the plain version."""
+        F, K = self.F, self.K
+        orig = K.fused_step, K.mul_batch, K.fused_barrett
+
+        def step(v, w, *, h, m, l, s, active, g, win):
+            hpd, lpd = h - m, l - g
+            sk, xk = F.powdiff_cuda(v, w, hpd, lpd, s, win=win)
+            self.compare("powdiff", (sk, xk),
+                         F.powdiff_reference(v, w, hpd, lpd, s, win=win))
+            out = F.update_cuda(w, xk, sk, h, m, active, win=win)
+            self.compare("update", (out,), (F.update_reference(
+                w, xk, sk, h, m, active, win=win),))
+            return out
+
+        def mul_batch(u, v, out_width):
+            got = self.bigmul.mul_batch_cuda(u, v, out_width)
+            self.compare("mul_batch", (got,),
+                         (K.mul_plain(u, v, out_width),))
+            return got
+
+        def barrett(x, mu, v, *, h):
+            got = F.barrett_cuda(x, mu, v, h=h)
+            r, over, under = F.barrett_branches(x, mu, v, h=h)
+            self.compare("barrett", (got,), (r,))
+            self.count_branches(over, under)
+            return got
+
+        K.fused_step, K.mul_batch, K.fused_barrett = step, mul_batch, barrett
+        try:
+            yield
+        finally:
+            K.fused_step, K.mul_batch, K.fused_barrett = orig
+
+    def check_barrett(self):
+        """Synthetic adversarial operands at 2^15- and 2^17-bit moduli
+        (the largest, where a product or a q window past 2W would show),
+        a shared mu and v read with row stride 0, then the real states of
+        reduce, modmul, the precompute and a short modexp at every
+        modulus size."""
+        F, MA = self.F, self.MA
+        self.branches = {"over": 0, "under": 0, "lanes": 0}
+        for bits in (2 ** 15, 2 ** 17):
+            m = bits // 16
+            x, mu, v, h, xs, vs = self.barrett_lanes(m, bits)
+            got = F.barrett_cuda(x, mu, v, h=h)
+            r, over, under = F.barrett_branches(x, mu, v, h=h)
+            self.compare("barrett", (got,), (r,))
+            self.count_branches(over, under)
+            for i, rr in enumerate(self.bi.batch_to_ints(got[:-2])):
+                if rr != xs[i] % vs[i]:
+                    raise AssertionError(f"barrett lane {i} inexact")
+            got = F.barrett_cuda(x, mu[0], v[0], h=h)
+            self.compare("barrett", (got,),
+                         (F.barrett_reference(x, mu[0], v[0], h=h),))
+            if self.bi.batch_to_ints(got) != [xx % vs[0] for xx in xs]:
+                raise AssertionError("barrett with a shared context inexact")
+            log(f"barrett synthetic 2^{bits.bit_length() - 1}-bit moduli: "
+                f"exact, branches so far {self.branches}")
+        for bits, batch in MODULI:
+            m = bits // 16
+            L = mod_operands(m, batch, bits + 3)
+            x, a = self.tensor(L["x"], 2 * m), self.tensor(L["a"], m)
+            with self.checking_modarith():
+                ctx = MA.barrett_precompute(self.tensor([L["v"]], m)[0])
+                MA.reduce_shared(ctx, x)
+                MA.modmul_shared(ctx, a, self.tensor(L["b"], m))
+                if bits == MODULI[0][0]:
+                    MA.modexp_shared(ctx, a[:16], self.tensor(
+                        [y % (1 << 16) for y in L["e"][:16]], 1))
+                    MA.reduce_batch(x[:64], self.tensor(L["vs"][:64], m))
+            log(f"modular path 2^{bits.bit_length() - 1}-bit modulus: "
+                f"kernels == plain on every launch")
+        log(f"barrett branches in the plain version: {self.branches}")
+        if not (self.branches["over"] and self.branches["under"]):
+            raise AssertionError("a Barrett correction branch never ran")
+        self.report["barrett_branches"] = dict(self.branches)
+        self.report["checked"] = dict(self.checked)
+        log(f"kernel-vs-plain comparisons: {self.checked}, max abs err "
+            f"{self.err}")
+
+    # -- phase 5: the modular-arithmetic path --------------------------------
+
+    def launched(self, fn):
+        """(fn(), kernel launches it made)."""
+        before = sum(self.build.launch_counts().values())
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, sum(self.build.launch_counts().values()) - before
+
+    def expect(self, what, got, want):
+        if got != want:
+            raise AssertionError(f"{what}: {got}, expected {want}")
+
+    def modarith_path(self):
+        MA, CM, B = self.MA, self.CM, 1 << 16
+        ints = self.bi.batch_to_ints
+        self.mod_inputs = {}
+        for bits, batch in MODULI:
+            m = bits // 16
+            tag = f"2^{bits.bit_length() - 1}-bit modulus"
+            L = mod_operands(m, batch, bits)
+            vt = self.tensor([L["v"]], m)[0]
+            ctx, n = self.launched(lambda: MA.barrett_precompute(vt))
+            self.expect(f"{tag} precompute launches", n,
+                        CM.precompute_launches(m))
+            mu = self.bi.to_int(self.bi.limbs_to_numpy(ctx.mu))
+            if mu - B ** MA.barrett_h(m) // L["v"] not in (0, 1):
+                raise AssertionError(f"{tag}: mu is not shinv + lambda")
+            x, a, b = (self.tensor(L["x"], 2 * m), self.tensor(L["a"], m),
+                       self.tensor(L["b"], m))
+            r, n = self.launched(lambda: MA.reduce_shared(ctx, x))
+            self.expect(f"{tag} reduce launches", n, CM.barrett_launches())
+            if ints(r) != [xx % L["v"] for xx in L["x"]]:
+                raise AssertionError(f"{tag}: reduce_shared inexact")
+            p, n = self.launched(lambda: MA.modmul_shared(ctx, a, b))
+            self.expect(f"{tag} modmul launches", n, CM.modmul_launches())
+            if ints(p) != [aa * bb % L["v"] for aa, bb in zip(L["a"],
+                                                               L["b"])]:
+                raise AssertionError(f"{tag}: modmul_shared inexact")
+            log(f"{tag}: precompute {CM.precompute_launches(m)} launches, "
+                f"reduce_shared and modmul_shared on {batch} lanes "
+                f"(1 and 2 launches), every lane exact")
+            self.mod_inputs[bits] = dict(L=L, vt=vt, ctx=ctx, x=x, a=a, b=b)
+            if bits != MODULI[0][0]:
+                continue
+            vl = self.tensor(L["vs"][:64], m)
+            r, n = self.launched(lambda: MA.reduce_batch(x[:64], vl))
+            self.expect(f"{tag} reduce_batch launches", n,
+                        CM.precompute_launches(m) + CM.barrett_launches())
+            if ints(r) != [xx % vv for xx, vv in zip(L["x"], L["vs"][:64])]:
+                raise AssertionError(f"{tag}: reduce_batch inexact")
+            p, n = self.launched(lambda: MA.modmul_batch(a[:64], b[:64], vl))
+            self.expect(f"{tag} modmul_batch launches", n,
+                        CM.precompute_launches(m) + CM.modmul_launches())
+            if ints(p) != [aa * bb % vv for aa, bb, vv in zip(
+                    L["a"], L["b"], L["vs"][:64])]:
+                raise AssertionError(f"{tag}: modmul_batch inexact")
+            log(f"{tag}: reduce_batch and modmul_batch with 64 per-lane "
+                f"moduli, every lane exact")
+            et = self.tensor(L["e"][:64], E_LIMBS)
+            t0 = time.perf_counter()
+            y, n = self.launched(lambda: MA.modexp_shared(ctx, a[:64], et))
+            dt = time.perf_counter() - t0
+            self.expect(f"{tag} modexp launches", n,
+                        CM.modexp_launches(16 * E_LIMBS))
+            if ints(y) != pow_all(zip(L["a"][:64], L["e"][:64],
+                                      [L["v"]] * 64)):
+                raise AssertionError(f"{tag}: modexp_shared inexact")
+            log(f"{tag}: modexp_shared on 64 lanes, {16 * E_LIMBS}-bit "
+                f"exponents: {n} launches ({dt:.2f} s), every lane exact")
+        try:
+            self.launched(lambda: MA.barrett_precompute(self.torch.ones(
+                16384, dtype=self.torch.int32, device=self.dev)))
+        except ValueError as exc:
+            log(f"2^18-bit modulus: ValueError ({exc})")
+        else:
+            raise AssertionError("a 2^18-bit modulus did not raise")
+        self.mod_service()
+
+    def mod_service(self):
+        m = 2048
+        svc = self.ModService(m_limbs=m, e_limbs=E_LIMBS,
+                              batch_buckets=(16, 64), device=self.dev)
+        L1, L2 = mod_operands(m, 100, 71), mod_operands(m, 100, 72)
+        v1, v2 = L1["v"], L2["v"]
+        ok = [svc.reduce(L1["x"][:10], v1) == [x % v1 for x in L1["x"][:10]],
+              svc.modmul(L2["a"], L2["b"], v2) == [        # 100 = 64 + 36
+                  a * b % v2 for a, b in zip(L2["a"], L2["b"])],
+              svc.reduce(L2["x"][:64], v2) == [x % v2 for x in L2["x"][:64]],
+              svc.modexp(L1["a"][:8], L1["e"][:8], v1) == pow_all(
+                  zip(L1["a"][:8], L1["e"][:8], [v1] * 8)),
+              svc.modmul(L1["a"][:3], L1["b"][:3], v1) == [
+                  a * b % v1 for a, b in zip(L1["a"][:3], L1["b"][:3])]]
+        if not all(ok):
+            raise AssertionError(f"ModArithService answers wrong: {ok}")
+        st = svc.stats()
+        c = st["ctx_cache"]
+        log(f"ModArithService m_limbs={m}: {st['requests']} requests, "
+            f"{st['rows_true']} rows in {st['rows_padded']} padded, exact; "
+            f"context cache hits {c['hits']}, misses {c['misses']}")
+        self.expect("context cache (hits, misses)",
+                    (c["hits"], c["misses"]), (3, 2))
+        self.report["mod_service"] = st
+
+    # -- phase 6b: timing of the modular path --------------------------------
+
+    def barrett_work(self, L, ctx, m, lanes):
+        """(limb products, bytes) one reduce_shared launch needs: x * mu
+        over the nonzero widths of x and mu, q * v truncated to W
+        (products i + j < W over the nonzero widths of q and v); x and
+        the shared mu and v read once, r written at W."""
+        MA, B = self.MA, 1 << 16
+        W, h = MA.barrett_width(m), MA.barrett_h(m)
+        mu = self.bi.to_int(self.bi.limbs_to_numpy(ctx.mu))
+        prec = lambda z: -(-z.bit_length() // 16)
+        nmu, nb, products = prec(mu), prec(L["v"]), 0
+        for xx in L["x"][:lanes]:
+            na = prec((xx * mu >> 16 * h) % B ** W)
+            t = min(na, max(0, W - nb + 1))     # rows i with i + nb <= W
+            products += prec(xx) * nmu + t * nb + (na - t) * W \
+                - (na - 1 + t) * (na - t) // 2
+        nbytes = 4 * (lanes * 2 * m + W + m + lanes * W)
+        return products, nbytes
+
+    def timing_modarith(self):
+        """Per modulus size: one Barrett launch's device time (first, before
+        any long profile) against its bound, and the plain version at the
+        2^15-bit modulus; then precompute, reduce_shared, modmul_shared and
+        modexp_shared (64 lanes, 256-bit exponents) timed with CUDA events
+        around the call, with the device's busy share of each
+        (torch.profiler)."""
+        F, MA = self.F, self.MA
+        rows = []
+        for bits, batch in MODULI:
+            m = bits // 16
+            mi = self.mod_inputs[bits]
+            ctx, x = mi["ctx"], mi["x"]
+            h = MA.barrett_h(m)
+            kern = lambda: F.barrett_cuda(x, ctx.mu, ctx.v, h=h)
+            dev = self.device_us([kern])
+            work = self.barrett_work(mi["L"], ctx, m, batch)
+            row = dict(modulus_bits=bits, lanes=batch,
+                       barrett_ms=self.time_ms(kern),
+                       barrett_device_ms=dev[0] / 1e3 if dev else None)
+            row["barrett_bound_ms"], row["barrett_bound_by"] = \
+                self.bound(*work)
+            row["barrett_products"], row["barrett_bytes"] = work
+            if bits == MODULI[0][0]:
+                row["barrett_plain_ms"] = self.time_ms(
+                    lambda: F.barrett_reference(x, ctx.mu, ctx.v, h=h))
+                self.agg["barrett"] = dict(
+                    event_ms=row["barrett_ms"],
+                    device_ms=row["barrett_device_ms"],
+                    plain_ms=row["barrett_plain_ms"], products=work[0],
+                    bytes=work[1], shape=f"one reduce_shared, 2^15-bit "
+                    f"modulus, {batch} lanes")
+            rows.append(row)
+        for row, (bits, batch) in zip(rows, MODULI):
+            mi = self.mod_inputs[bits]
+            L, ctx, x, a, b = (mi[k] for k in ("L", "ctx", "x", "a", "b"))
+            et = self.tensor(L["e"][:64], E_LIMBS)
+            calls = {
+                "precompute": lambda: MA.barrett_precompute(mi["vt"]),
+                "reduce": lambda: MA.reduce_shared(ctx, x),
+                "modmul": lambda: MA.modmul_shared(ctx, a, b),
+                "modexp": lambda: MA.modexp_shared(ctx, a[:64], et)}
+            for name, fn in calls.items():
+                runs = 3 if name == "modexp" and bits != MODULI[0][0] else 5
+                ms = self.time_ms(fn, runs=runs)
+                share = self.device_share(fn, ms)
+                row[f"{name}_ms"] = ms
+                row[f"{name}_device_ms"] = share["device_ms"]
+                row[f"{name}_busy_share"] = share["device_busy_share"]
+            row["reductions_per_s"] = batch / (row["reduce_ms"] / 1e3)
+            row["modmuls_per_s"] = batch / (row["modmul_ms"] / 1e3)
+            row["modexp_lanes"] = 64
+            row["exponentiations_per_s"] = 64 / (row["modexp_ms"] / 1e3)
+            if bits != MODULI[0][0]:          # exactness at 2^15: phase 5
+                got = self.bi.batch_to_ints(calls["modexp"]()[:4])
+                if got != pow_all(zip(L["a"][:4], L["e"][:4],
+                                      [L["v"]] * 4)):
+                    raise AssertionError(f"modexp inexact at {bits} bits")
+            log(json.dumps(row))
+        self.report["timing_modarith"] = rows
+
     def kernel_line(self, launches):
         """One entry per kernel.  The times and the bound are sums over
         the launches of one divmod_batch at 2^15 bits, batch 256 (for
-        mul_batch: its q*v product there).  ms is the profiler's device
+        mul_batch: its q*v product there; for barrett: one reduce_shared
+        launch at the 2^15-bit modulus, 256 lanes).  ms is the profiler's device
         time (CUDA events around the wrapper call where the profiler saw
         nothing; ms_source says which), event_ms the events' time with
         the wrapper's host cost."""
@@ -504,7 +884,8 @@ class Smoke:
                      plain_ms=a["plain_ms"], bound_ms=bms, bound_by=by,
                      library_ms=None, event_ms=a["event_ms"],
                      ms_source="profiler" if dev else "cuda_events",
-                     shape="one divmod_batch, 2^15 bits, batch 256")
+                     shape=a.get("shape",
+                                 "one divmod_batch, 2^15 bits, batch 256"))
             if name in GRID_TWINS:
                 e["also_replaces"] = GRID_TWINS[name]
             out.append(e)

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("mul", "step", "correct")
+SOURCES = ("mul", "step", "correct", "barrett")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -85,6 +85,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "step_scratch_bytes": [I],
         "correct_launch": [P, P, P, P, P, P, P, I, I, P],
         "correct_scratch_bytes": [I],
+        "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+        "barrett_scratch_bytes": [I],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

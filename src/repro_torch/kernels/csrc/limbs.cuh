@@ -1,5 +1,5 @@
 // Block-cooperative multi-precision limb routines shared by the port's
-// kernels (mul.cu, step.cu, correct.cu).
+// kernels (mul.cu, step.cu, correct.cu, barrett.cu).
 //
 // Layout: one thread block per instance, kThreads threads.  A big
 // integer is a little-endian array of base-2^16 limbs held in 32-bit

@@ -1,19 +1,22 @@
-"""Fused division-step kernels and their plain versions.
+"""Fused division-step and Barrett kernels and their plain versions.
 
-One Refine iteration is two kernel launches and the divmod finalization
-one, as in the JAX package (`repro/kernels/fused.py`):
+One Refine iteration is two kernel launches, the divmod finalization
+one and a Barrett reduction one, as in the JAX package
+(`repro/kernels/fused.py`):
 
   powdiff   csrc/step.cu    replaces _powdiff_kernel, _powdiff_grid_kernel
   update    csrc/step.cu    replaces _update_kernel, _update_grid_kernel
   correct   csrc/correct.cu replaces _correct_kernel, _correct_grid_kernel
+  barrett   csrc/barrett.cu replaces _barrett_kernel, _barrett_grid_kernel
 
 The TPU's two kernel generations computed the same functions (they
 differed only in how the product fit VMEM); on Hopper one kernel per
 stage covers every width.  `powdiff_reference`, `update_reference`,
-`step_reference` and `correct_reference` are the plain PyTorch versions
-(the JAX package's `_powdiff_reference`, `step_reference` and
-`correct_reference`, batched): `kernels/ops.py` runs them for CPU
-tensors, and the tests and `chip_smoke.py` hold the kernels to them.
+`step_reference`, `correct_reference` and `barrett_reference` are the
+plain PyTorch versions (the JAX package's `_powdiff_reference`,
+`step_reference`, `correct_reference` and `barrett_reference`,
+batched): `kernels/ops.py` runs them for CPU tensors, and the tests
+and `chip_smoke.py` hold the kernels to them.
 """
 
 from __future__ import annotations
@@ -120,6 +123,45 @@ def correct_reference(u, v, si, *, h):
     return torch.where(vz, 0, q), torch.where(vz, u, r)
 
 
+def _rows(a: torch.Tensor, batch: int, width: int) -> torch.Tensor:
+    """A (w,) operand shared by every lane or a (batch, w) one, as a
+    (batch, width) view, zero-padded to width."""
+    a = _pad_to(a, width)
+    return a.expand(batch, width) if a.ndim == 1 else a
+
+
+def barrett_branches(x, mu, v, *, h: int):
+    """The Barrett reduction core as the plain composition, and the
+    correction each lane took: (r, over, under).
+
+    x: (batch, <= W) limbs; mu: (W,) or (batch, W), the cached
+    shinv_h(v) + lambda; v: (<= W,) or (batch, <= W); h a static int.
+    p = x * mu to 2W limbs, q = floor(p / B^h) cut to W, qv = (q * v)
+    mod B^W; `over` (qhat = q + 1) is x < qv before the subtraction,
+    `under` (qhat = q - 1) is r >= v after it.  r is (batch, W)."""
+    width = mu.shape[-1]
+    batch = x.shape[0]
+    x = _pad_to(x, width)
+    mu = _rows(mu, batch, width)
+    v = _rows(v, batch, width)
+    p = mul_plain(x, mu, 2 * width)
+    q = A.shift(p, -h)[:, :width]
+    qv = mul_plain(q, v, width)
+
+    over = A.lt(x, qv)                            # qhat = q + 1
+    qv = torch.where(_row(over), A.sub(qv, v), qv)
+    r = A.sub(x, qv)
+    under = A.ge(r, v)                            # qhat = q - 1
+    r = torch.where(_row(under), A.sub(r, v), r)
+    return r, over, under
+
+
+def barrett_reference(x, mu, v, *, h: int):
+    """Barrett reduction core (two truncated products + two conditional
+    subtracts) -> r (batch, W); see `barrett_branches`."""
+    return barrett_branches(x, mu, v, h=h)[0]
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -221,3 +263,36 @@ def correct_cuda(u, v, si, *, h):
         build.check(err, "correct kernel")
         build.count("correct")
     return q, r
+
+
+def barrett_cuda(x, mu, v, *, h: int):
+    """Kernel of `barrett_reference`: r (batch, W) in one launch.  A
+    shared (W,) mu or (<= W,) v is read by every lane through a row
+    stride of 0, never copied per lane."""
+    full_w = mu.shape[-1]
+    if x.ndim != 2 or x.shape[1] > full_w or v.shape[-1] > full_w:
+        raise ValueError(f"expected x (batch, <= {full_w}) and v (<= "
+                         f"{full_w}) limbs, got {tuple(x.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not 0 <= h <= 2 * full_w:
+        raise ValueError(f"shift {h} outside [0, {2 * full_w}]")
+    batch, nx = x.shape
+    strides = {}
+    for name, a in (("mu", mu), ("v", v)):
+        check_limbs(name, a)
+        if a.ndim == 2 and a.shape[0] != batch:
+            raise ValueError(f"{name}: {a.shape[0]} rows for {batch} lanes")
+        strides[name] = a.shape[-1] if a.ndim == 2 else 0
+    _operands(nx, batch, 2 * full_w, x=x)
+    r = torch.empty(batch, full_w, dtype=torch.int32, device=x.device)
+    if batch:
+        lib = build.lib("barrett")
+        scratch = torch.empty(batch * lib.barrett_scratch_bytes(full_w),
+                              dtype=torch.uint8, device=x.device)
+        err = lib.barrett_launch(
+            x.data_ptr(), mu.data_ptr(), v.data_ptr(), r.data_ptr(),
+            scratch.data_ptr(), batch, nx, strides["mu"], v.shape[-1],
+            strides["v"], full_w, h, stream_ptr(x))
+        build.check(err, "barrett kernel")
+        build.count("barrett")
+    return r

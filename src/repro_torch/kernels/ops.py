@@ -1,4 +1,5 @@
-"""Multiplication entry points and the fused division-step dispatch.
+"""Multiplication entry points and the fused division-step and Barrett
+dispatch.
 
 The dispatch rule is the device of the operands: a CPU tensor goes to
 the plain PyTorch version, a CUDA tensor to the hand-written Hopper
@@ -126,3 +127,14 @@ def fused_correct(u, v, si, *, h):
     if _check_device(u, v, si) == "cuda":
         return fused.correct_cuda(u, v, si, h=h)
     return fused.correct_reference(u, v, si, h=h)
+
+
+def fused_barrett(x, mu, v, *, h: int):
+    """Barrett reduction core -> r at width W (the caller cuts it to the
+    modulus width).  x: (batch, <= W) limbs; mu: (W,) shared or
+    (batch, W) per lane; v likewise, at most W limbs; h a static int.
+    One kernel launch on CUDA, the plain composition on the CPU."""
+    from . import fused
+    if _check_device(x, mu, v) == "cuda":
+        return fused.barrett_cuda(x, mu, v, h=h)
+    return fused.barrett_reference(x, mu, v, h=h)

@@ -1,1 +1,2 @@
-"""Request batching and the division service."""
+"""Request batching, the division service and the modular-arithmetic
+service."""

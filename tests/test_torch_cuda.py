@@ -122,3 +122,84 @@ def test_divmod_on_card_exact_with_launch_count(dev, m):
         bi.limbs_to_numpy(q),
         bi.limbs_to_numpy(S.divmod_batch(_t(us, m, "cpu"),
                                          _t(vs, m, "cpu"))[0]))
+
+
+def _barrett_lanes(m, dev):
+    """Barrett core operands at W = barrett_width(m): a valid mu
+    (shinv_h(v) + lambda) with x built to take `over` (lambda = 1,
+    x = k v - 1 near B^(2m)) and `under` (lambda = 0, x = k v), edge
+    moduli (1, B^k, all-0xFFFF, one limb) and one arbitrary mu."""
+    from repro_torch.core import modarith as MA
+    rnd = random.Random(m)
+    W, h = MA.barrett_width(m), MA.barrett_h(m)
+    vs = [rnd.randint(B ** (m - 1), B ** m - 1) for _ in range(4)] + [
+        1, B ** (m - 1), B ** m - 1, 0xFFFF, rnd.randint(1, B ** m - 1)]
+    ks = [(B ** (2 * m) - 1) // v for v in vs]
+    xs = [ks[0] * vs[0] - 1, ks[1] * vs[1], ks[2] * vs[2] - 1, ks[3] * vs[3],
+          B ** (2 * m) - 1, rnd.randint(0, B ** (2 * m) - 1), 5,
+          0xFFFF * rnd.randint(1, B ** m), rnd.randint(0, B ** (2 * m) - 1)]
+    lams = [1, 0, 1, 0, 0, 1, 0, 0, 1]
+    mus = [B ** h // v + lam for v, lam in zip(vs, lams)]
+    mus[-1] = rnd.randint(0, B ** W - 1)
+    return (_t(xs, 2 * m, dev), _t(mus, W, dev), _t(vs, m, dev), h,
+            (xs, vs))
+
+
+@pytest.mark.parametrize("m", [4, 2048, 8192])
+def test_barrett_kernel_matches_plain(dev, m):
+    x, mu, v, h, (xs, vs) = _barrett_lanes(m, dev)
+    got = F.barrett_cuda(x, mu, v, h=h)
+    torch.cuda.synchronize()
+    r, over, under = F.barrett_branches(x, mu, v, h=h)
+    assert torch.equal(got, r)
+    assert over[:-1].any() and under[:-1].any()
+    for i, row in enumerate(bi.batch_to_ints(got[:-1])):
+        assert row == xs[i] % vs[i]
+    # a shared context: one mu and v read by every lane (row stride 0)
+    got = F.barrett_cuda(x, mu[0], v[0], h=h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.barrett_reference(x, mu[0], v[0], h=h))
+    assert bi.batch_to_ints(got) == [xx % vs[0] for xx in xs]
+
+
+@pytest.mark.parametrize("m", [4, 26, 130])
+def test_modarith_on_card_exact_with_launch_counts(dev, m):
+    from repro_torch.core import modarith as MA
+    rnd = random.Random(m)
+    v = rnd.randint(B ** (m - 1), B ** m - 1)
+    xs = [rnd.randint(0, B ** (2 * m) - 1) for _ in range(8)]
+    a = [x % B ** m for x in xs]
+    es = [rnd.randint(0, B - 1) for _ in range(8)]
+    build.build_all()
+    build.reset_launch_counts()
+    ctx = MA.barrett_precompute(_t([v], m, dev)[0])
+    torch.cuda.synchronize()
+    assert sum(build.launch_counts().values()) == CM.precompute_launches(m)
+    build.reset_launch_counts()
+    assert bi.batch_to_ints(MA.reduce_shared(ctx, _t(xs, 2 * m, dev))) == \
+        [x % v for x in xs]
+    assert build.launch_counts() == {"barrett": 1}
+    build.reset_launch_counts()
+    got = MA.modexp_shared(ctx, _t(a, m, dev), _t(es, 1, dev))
+    assert bi.batch_to_ints(got) == [pow(x, y, v) for x, y in zip(a, es)]
+    counts = build.launch_counts()
+    lad = CM.modexp_ladder(16)
+    assert counts == {"barrett": lad["reductions"],
+                      "mul_batch": lad["modmuls"]}
+    assert sum(counts.values()) == CM.modexp_launches(16)
+    vs = [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(8)]
+    per_lane = MA.modmul_batch(_t(a, m, dev), _t(a[::-1], m, dev),
+                               _t(vs, m, dev))
+    assert bi.batch_to_ints(per_lane) == [
+        x * y % z for x, y, z in zip(a, a[::-1], vs)]
+
+
+def test_modulus_past_shared_memory_raises(dev):
+    """A 2^18-bit modulus (W = 32778) does not fit the kernels' shared
+    memory staging: an explicit error before any launch."""
+    from repro_torch.core import modarith as MA
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        MA.barrett_precompute(torch.ones(16384, dtype=torch.int32,
+                                         device=dev))
+    assert build.launch_counts() == {}
