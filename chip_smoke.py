@@ -5,7 +5,9 @@
 
 Phases, each of which raises on failure:
   1. the card (nvidia-smi name and power limit);
-  2. build the five kernels from src/repro_torch/kernels/csrc with nvcc;
+  2. build the six kernels from src/repro_torch/kernels/csrc with nvcc
+     (one nvcc per source, all at once, into the git-ignored
+     src/repro_torch/kernels/_build/);
   3. every kernel against its plain PyTorch version on the card, bit for
      bit, at the main paths' shapes: divmod_batch at 2^15..2^18 bits with
      each Refine step and the finalization run through kernel AND plain
@@ -15,7 +17,10 @@ Phases, each of which raises on failure:
      2^17-bit moduli (lanes that take each correction branch, counted
      in the plain version) and at the real states of the modular path
      (precompute steps, reduce, modmul and a short modexp at 2^15/2^16/
-     2^17-bit moduli);
+     2^17-bit moduli); then the pair kernel (mul_pairs, mulmod_pairs) at
+     the q*v shapes of the 2^15 x 256 and 2^18 x 32 division cells,
+     divmod's u*shinv at 2^18 x 32, the 2^18-bit modulus's x*mu and the
+     close product at l_max around tile edges;
   4. the division path: divmod_batch at 2^15/2^16/2^17/2^18 bits
      (batches 256/128/64/32), every lane checked against Python divmod
      and on the card as q*v + r == u, with exactly 2*refine_iters(M) + 1
@@ -29,14 +34,33 @@ Phases, each of which raises on failure:
      every lane against Python % and pow; the 2^18-bit modulus raises;
      then ModArithService answering reduce, modmul and modexp requests
      against two interleaved moduli (one request split across buckets);
+  5b. the frontend path: AsyncFrontend (impl cuda_fused) over the
+     division service at 2^15 and 2^18 bits and ModArithService at a
+     2^15-bit modulus, concurrent divmod, reduce, modmul and modexp
+     (256-bit exponents) requests, every answer against Python, with no
+     fault, retry, degradation or dropped request;
+  5c. the pairs path: the services with impl cuda_pairs (divmod at 2^15
+     and 2^18 bits, reduce, modmul and a short modexp at a 2^15-bit
+     modulus, 4 reductions at a 2^18-bit modulus), exact, with the
+     cost model's mul_pairs launches and no other kernel;
+  5d. frontend chaos at 2^15 bits: a seeded compile fault degrades
+     cuda_fused to cuda_batched, with answers bit-identical to 5b's; one
+     on cuda_pairs has no rung below it on the card (the ladder never
+     falls to the plain versions there), so its requests fail typed and
+     launch nothing but their contexts' precompute; transient execute faults are retried; the
+     quarantine set and the plans' degraded_from as planned, nothing
+     dropped;
   6. timing with CUDA events (median of 5 after a warm-up): each kernel
      at each window it runs at, divmod_batch per precision; per modulus
      size the precompute, reductions/s, modmuls/s, modexp (256-bit
      exponents) and exponentiations/s, the device's busy share, and the
-     Barrett kernel's device time per launch against its bound.
+     Barrett kernel's device time per launch against its bound; mul_pairs
+     beside mul_batch at the q*v shapes of the 2^15 x 256 and 2^18 x 32
+     cells.
 
-The kernel launch counters are set to 0 just before each of phases 4
-and 5 and read just after it.  Details go to chiprun_out/chip_smoke.json.
+The kernel launch counters are set to 0 just before each of phases 4,
+5, 5b, 5c and 5d and read just after it.  Details go to
+chiprun_out/chip_smoke.json.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, times and bounds.  Exits non-zero
 without a result when there is no CUDA device or no src/repro_torch
@@ -80,6 +104,8 @@ KERNELS = {
                 "src/repro/kernels/fused.py:468"),
     "barrett": ("src/repro_torch/kernels/csrc/barrett.cu",
                 "src/repro/kernels/fused.py:486"),
+    "mul_pairs": ("src/repro_torch/kernels/csrc/pairs.cu",
+                  "src/repro/kernels/bigmul.py:114"),
 }
 GRID_TWINS = {"powdiff": "src/repro/kernels/fused.py:748",
               "update": "src/repro/kernels/fused.py:781",
@@ -89,7 +115,18 @@ GRID_TWINS = {"powdiff": "src/repro/kernels/fused.py:748",
 PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                                   "correct"),
                 "modarith_path": ("mul_batch", "powdiff", "update",
-                                  "barrett")}
+                                  "barrett"),
+                "frontend_path": ("mul_batch", "powdiff", "update",
+                                  "correct", "barrett"),
+                "pairs_path": ("mul_pairs",),
+                "frontend_chaos": ("mul_batch", "powdiff", "update",
+                                   "correct")}
+# limbs at 2^15 and 2^18 bits, the sizes of the frontend and pair phases
+M15, M18 = 2 ** 15 // 16, 2 ** 18 // 16
+# the frontend's requests at 2^15 bits (one split across buckets)
+DIV_REQUESTS = (10, 70, 5)
+MOD_REQUESTS = (("reduce", 70), ("modmul", 20), ("modexp", 12),
+                ("reduce", 5))
 
 
 def log(*a):
@@ -144,19 +181,35 @@ def mod_operands(m: int, batch: int, seed: int):
     return dict(v=v, vs=vs, x=xs, a=a, b=b, e=e)
 
 
+def fused_only(impl):
+    """The kernel-vs-plain checks route the default impl's launches."""
+    if impl not in (None, "cuda_fused"):
+        raise AssertionError(f"check routed impl {impl!r}")
+
+
 def _pow(args):
     return pow(*args)
 
 
-def pow_all(triples) -> list[int]:
-    """pow(a, e, v) for each triple, on the host's cores (CPython's
-    modular reduction is quadratic: 0.7 s for one 256-bit exponent at a
-    2^15-bit modulus).  The pool is closed before this returns."""
-    triples = list(triples)
+def _divmod(args):
+    u, v = args
+    return divmod(u, v) if v else (0, u)
+
+
+def host_map(fn, items) -> list:
+    """fn over items on the host's cores (CPython's long division is
+    quadratic: 0.7 s for one 256-bit exponent at a 2^15-bit modulus).
+    The pool is closed before this returns."""
+    items = list(items)
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=min(8, len(triples)),
+    with ProcessPoolExecutor(max_workers=min(8, len(items)),
                              mp_context=ctx) as pool:
-        return list(pool.map(_pow, triples))
+        return list(pool.map(fn, items))
+
+
+def pow_all(triples) -> list[int]:
+    """pow(a, e, v) for each triple, on the host's cores."""
+    return host_map(_pow, triples)
 
 
 def main() -> int:
@@ -179,8 +232,11 @@ class Smoke:
         from repro_torch.core import arith, bigint, modarith, shinv
         from repro_torch.kernels import bigmul, fused, ops
         from repro_torch.obs import costmodel
+        from repro_torch.serving import errors, faults, frontend, policy
         from repro_torch.serving.bigint_service import BigintDivisionService
         from repro_torch.serving.modexp_service import ModArithService
+        self.faults, self.frontend, self.policy = faults, frontend, policy
+        self.errors = errors
         self.torch, self.build = torch, build
         self.A, self.bi, self.S, self.MA = arith, bigint, shinv, modarith
         self.F, self.K, self.CM, self.bigmul = fused, ops, costmodel, bigmul
@@ -234,9 +290,13 @@ class Smoke:
             f"({time.perf_counter() - t0:.1f} s with loading)")
         self.phase("kernels_vs_plain", self.check_kernels)
         self.phase("barrett_vs_plain", self.check_barrett)
+        self.phase("pairs_vs_plain", self.check_pairs)
         launches = {}
         for name, fn in (("division_path", self.main_path),
-                         ("modarith_path", self.modarith_path)):
+                         ("modarith_path", self.modarith_path),
+                         ("frontend_path", self.frontend_path),
+                         ("pairs_path", self.pairs_path),
+                         ("frontend_chaos", self.frontend_chaos)):
             self.build.reset_launch_counts()
             self.phase(name, fn)
             got = self.build.launch_counts()
@@ -249,6 +309,7 @@ class Smoke:
                 launches[k] = launches.get(k, 0) + n
             self.report.setdefault("path_launches", {})[name] = got
         self.phase("timing", self.timing)
+        self.phase("timing_pairs", self.timing_pairs)
         self.phase("timing_modarith", self.timing_modarith)
         kernels = self.kernel_line(launches)
         out = ROOT / "chiprun_out"
@@ -282,7 +343,8 @@ class Smoke:
         rec = self.record.setdefault(bits, {"step": [], "correct": None})
         orig = K.fused_step, K.fused_correct
 
-        def step(v, w, *, h, m, l, s, active, g, win):
+        def step(v, w, *, h, m, l, s, active, g, win, impl=None):
+            fused_only(impl)
             hpd, lpd = h - m, l - g
             sk, xk = F.powdiff_cuda(v, w, hpd, lpd, s, win=win)
             self.compare("powdiff", (sk, xk),
@@ -295,7 +357,8 @@ class Smoke:
                                     win=win))
             return out
 
-        def correct(u, v, si, *, h):
+        def correct(u, v, si, *, h, impl=None):
+            fused_only(impl)
             got = F.correct_cuda(u, v, si, h=h)
             self.compare("correct", got, F.correct_reference(u, v, si, h=h))
             rec["correct"] = dict(u=u, v=v, si=si, h=h)
@@ -520,6 +583,21 @@ class Smoke:
         self.report["timing"] = rows
         self.agg = agg
 
+    def burst_ms(self, fn, n=20):
+        """Time of one call from CUDA events around n back-to-back calls
+        after a warm-up: the device time of a kernel whose run is longer
+        than its wrapper's host cost."""
+        torch = self.torch
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
     def device_us(self, calls):
         """Device time (us) of each port kernel the calls launch, in
         launch order (torch.profiler); None where the profiler reports
@@ -536,7 +614,8 @@ class Smoke:
                and e.name.split("(")[0][:-len("_kernel")] in KERNELS]
         evs.sort(key=lambda e: e.time_range.start)
         if len(evs) != len(calls):
-            log(f"profiler saw {len(evs)} kernels for {len(calls)} calls")
+            log(f"profiler saw {len(evs)} kernels for {len(calls)} calls: "
+                f"{[e.name.split('(')[0] for e in evs]}")
             return None
         return [e.time_range.elapsed_us() for e in evs]
 
@@ -603,7 +682,8 @@ class Smoke:
         F, K = self.F, self.K
         orig = K.fused_step, K.mul_batch, K.fused_barrett
 
-        def step(v, w, *, h, m, l, s, active, g, win):
+        def step(v, w, *, h, m, l, s, active, g, win, impl=None):
+            fused_only(impl)
             hpd, lpd = h - m, l - g
             sk, xk = F.powdiff_cuda(v, w, hpd, lpd, s, win=win)
             self.compare("powdiff", (sk, xk),
@@ -613,13 +693,15 @@ class Smoke:
                 w, xk, sk, h, m, active, win=win),))
             return out
 
-        def mul_batch(u, v, out_width):
+        def mul_batch(u, v, out_width, impl=None):
+            fused_only(impl)
             got = self.bigmul.mul_batch_cuda(u, v, out_width)
             self.compare("mul_batch", (got,),
                          (K.mul_plain(u, v, out_width),))
             return got
 
-        def barrett(x, mu, v, *, h):
+        def barrett(x, mu, v, *, h, impl=None):
+            fused_only(impl)
             got = F.barrett_cuda(x, mu, v, h=h)
             r, over, under = F.barrett_branches(x, mu, v, h=h)
             self.compare("barrett", (got,), (r,))
@@ -864,14 +946,383 @@ class Smoke:
             log(json.dumps(row))
         self.report["timing_modarith"] = rows
 
+    # -- phase 3c: the pair kernel against its plain version ----------------
+
+    def limbs(self, batch, w, seed, zero_lane=False):
+        """numpy-seeded (batch, w) limbs on the card: lane 0 all-0xFFFF,
+        lane 1 zero with `zero_lane`, the rest random."""
+        import numpy as np
+        a = np.random.default_rng(seed).integers(0, 1 << 16, (batch, w),
+                                                 dtype=np.uint32)
+        a[0] = 0xFFFF
+        if zero_lane:
+            a[1] = 0
+        return self.bi.limbs_from_numpy(a, self.dev)
+
+    def check_lanes(self, u, v, got, mod):
+        """The first three lanes of a product against Python ints."""
+        ints = self.bi.batch_to_ints
+        for x, y, z in zip(ints(u[:3]), ints(v[:3]), ints(got[:3])):
+            if z != x * y % mod:
+                raise AssertionError("pair product inexact")
+
+    def check_pairs(self):
+        """mul_pairs and mulmod_pairs against their plain versions on the
+        card, bit for bit: the q*v products of the 2^15 x 256 and
+        2^18 x 32 division cells, divmod's double-width u*shinv at
+        2^18 x 32, the 2^18-bit modulus's x*mu on 4 lanes, and the close
+        product at l_max on and around tile edges (lane 0 all-0xFFFF);
+        three lanes of each against Python ints."""
+        bm, B = self.bigmul, 1 << 16
+        w18 = self.MA.barrett_width(M18)
+        wd = M18 + self.S.PAD                   # divmod's working width
+        cases = (("q*v, 2^15 bits x 256", 256, M15, M15, M15),
+                 ("q*v, 2^18 bits x 32", 32, M18, M18, M18),
+                 ("u*shinv, 2^18 bits x 32", 32, wd, wd, 2 * wd),
+                 ("x*mu, 2^18-bit modulus x 4", 4, 2 * M18, w18, 2 * w18))
+        for i, (what, batch, wu, wv, wo) in enumerate(cases):
+            u = self.limbs(batch, wu, 10 + i, zero_lane=True)
+            v = self.limbs(batch, wv, 20 + i)
+            got = bm.mul_pairs(u, v, wo)
+            self.compare("mul_pairs", (got,),
+                         (bm.mul_pairs_reference(u, v, wo),))
+            self.check_lanes(u, v, got, B ** wo)
+            log(f"mul_pairs {what} ({wu} x {wv} -> {wo} limbs): exact")
+        u = self.limbs(64, M15, 30, zero_lane=True)
+        v = self.limbs(64, M15, 31)
+        t = self.K.BLOCK_T
+        l_maxes = sorted({1, t - 1, t, t + 1, M15 // 2 - 1, M15 // 2,
+                          M15 // 2 + 1, M15 - 1, M15} & set(range(1, M15 + 1)))
+        for l_max in l_maxes:
+            got = bm.mulmod_pairs(u, v, l_max, M15)
+            self.compare("mul_pairs", (got,), (bm.mulmod_pairs_reference(
+                u, v, l_max, M15),))
+            self.check_lanes(u, v, got, B ** l_max)
+        log(f"mulmod_pairs {M15} x {M15} limbs, l_max {l_maxes}: exact")
+        self.report["checked"] = dict(self.checked)
+
+    # -- the serving frontend ------------------------------------------------
+
+    def div_requests(self, m, sizes, seed):
+        return [("divmod", operands(m, n, seed + i), None)
+                for i, n in enumerate(sizes)]
+
+    def mod_requests(self, m, seed):
+        """reduce, modmul and modexp (256-bit exponents, edges 0, 1 and
+        all ones) against a modulus v1, and a modmul against v2."""
+        L1, L2 = mod_operands(m, 70, seed), mod_operands(m, 20, seed + 1)
+        v1 = L1["v"]
+        cols = {"reduce": lambda n: (L1["x"][:n],),
+                "modmul": lambda n: (L1["a"][:n], L1["b"][:n]),
+                "modexp": lambda n: (L1["a"][:n], L1["e"][:n])}
+        return [(op, cols[op](n), v1) for op, n in MOD_REQUESTS] + [
+            ("modmul", (L2["a"], L2["b"]), L2["v"])]
+
+    def expected(self, op, cols, v):
+        """What the frontend must answer, from Python ints."""
+        if op == "divmod":
+            qr = [divmod(u, d) if d else (0, u) for u, d in zip(*cols)]
+            return [q for q, _ in qr], [r for _, r in qr]
+        if op == "reduce":
+            return [x % v for x in cols[0]]
+        if op == "modmul":
+            return [a * b % v for a, b in zip(*cols)]
+        return pow_all((a, e, v) for a, e in zip(*cols))
+
+    def serve(self, svc, requests, faults=None, return_exceptions=False):
+        """Submit every request at once to an AsyncFrontend over svc;
+        returns the answers (or, with return_exceptions, the error a
+        request failed with), healthz() before the frontend stops, and
+        the frontend."""
+        import asyncio
+        pol = self.policy.ServingPolicy(backoff_base=0.001, backoff_cap=0.004)
+
+        async def drive():
+            fe = self.frontend.AsyncFrontend(svc, policy=pol, faults=faults)
+            async with fe:
+                outs = await asyncio.gather(*[
+                    fe.submit(op, *cols, v=v) for op, cols, v in requests],
+                    return_exceptions=return_exceptions)
+                health = fe.healthz()
+            return [tuple(o) if op == "divmod" else o for o, (op, _, _) in
+                    zip(outs, requests)], health, fe
+        outs, health, fe = asyncio.run(drive())
+        self.torch.cuda.synchronize()
+        return outs, health, fe
+
+    @staticmethod
+    def fe_totals(fe):
+        """faults, degradations, retries and drops of a frontend run."""
+        m = fe.metrics
+        tot = lambda metric: int(sum(s.value for s in metric.series()))
+        return dict(faults=tot(m.faults), degraded=tot(m.degraded),
+                    retries=tot(m.retries), dropped=fe.dropped_requests())
+
+    def frontend_path(self):
+        """AsyncFrontend, impl cuda_fused, over the division service at
+        2^15 and 2^18 bits and ModArithService at a 2^15-bit modulus:
+        every request of a run submitted at once (coalesced, one split
+        across buckets), every answer against Python; no fault, retry,
+        degradation or drop."""
+        self.frontend_answers = {}
+        runs = (("divmod 2^15", self.Service(
+                    m_limbs=M15, batch_buckets=(16, 64), device=self.dev),
+                 self.div_requests(M15, DIV_REQUESTS, 150)),
+                ("divmod 2^18", self.Service(
+                    m_limbs=M18, batch_buckets=(8, 32), device=self.dev),
+                 self.div_requests(M18, (12, 30), 180)),
+                ("modarith 2^15", self.ModService(
+                    m_limbs=M15, e_limbs=E_LIMBS, batch_buckets=(16, 64),
+                    device=self.dev), self.mod_requests(M15, 151)))
+        for what, svc, reqs in runs:
+            t0 = time.perf_counter()
+            outs, health, fe = self.serve(svc, reqs)
+            dt = time.perf_counter() - t0
+            for (op, cols, v), got in zip(reqs, outs):
+                if got != self.expected(op, cols, v):
+                    raise AssertionError(f"frontend {what}: {op} wrong")
+            self.expect(f"frontend {what} faults", self.fe_totals(fe),
+                        dict(faults=0, degraded=0, retries=0, dropped=0))
+            self.expect(f"frontend {what} health",
+                        (health["status"], health["quarantine"]),
+                        ("ok", []))
+            self.frontend_answers[what] = outs
+            st = svc.stats()
+            log(f"frontend {what}: {len(reqs)} requests, "
+                f"{st['rows_true']} rows in {st['rows_padded']} padded, "
+                f"{dt:.2f} s, every answer exact, no fault")
+            self.report.setdefault("frontend", {})[what] = dict(
+                seconds=dt, stats=st, health=health)
+
+    def launched_by(self, fn):
+        """(fn(), the kernel launches it made by kernel)."""
+        before = self.build.launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        after = self.build.launch_counts()
+        return out, {k: n - before.get(k, 0) for k, n in after.items()
+                     if n != before.get(k, 0)}
+
+    def pairs_path(self):
+        """The services with impl cuda_pairs: divmod at 2^15 and 2^18
+        bits, reduce, modmul and a 16-bit-exponent modexp at a 2^15-bit
+        modulus, and 4 reductions at a 2^18-bit modulus, which the fused
+        kernels' shared memory cannot hold; every answer exact, mul_pairs
+        launched as the cost model counts for cuda_pairs, and no other
+        kernel."""
+        CM, impl = self.CM, "cuda_pairs"
+        for m, buckets, n in ((M15, (16, 64), 40), (M18, (8,), 8)):
+            svc = self.Service(m_limbs=m, batch_buckets=buckets,
+                               device=self.dev, impl=impl)
+            us, vs = operands(m, n, m + 5)
+            got, counts = self.launched_by(lambda: svc.divide(us, vs))
+            chunks = len(svc.batcher.plan(n))
+            self.expect(f"cuda_pairs divmod {m} limbs launches", counts,
+                        {"mul_pairs": chunks * CM.model_launches(
+                            "divmod", m, impl)})
+            if got != self.expected("divmod", (us, vs), None):
+                raise AssertionError(f"cuda_pairs divmod {m} limbs wrong")
+            log(f"cuda_pairs divmod {m} limbs x {n}: {counts}, exact")
+        mod = self.ModService(m_limbs=M15, e_limbs=1, batch_buckets=(16, 64),
+                              device=self.dev, impl=impl)
+        L = mod_operands(M15, 20, 2052)
+        v, e16 = L["v"], [e % (1 << 16) for e in L["e"][:8]]
+        calls = (("reduce", (L["x"],), CM.precompute_launches(M15, impl)
+                  + CM.model_launches("reduce", M15, impl)),
+                 ("modmul", (L["a"], L["b"]),
+                  CM.model_launches("modmul", M15, impl)),
+                 ("modexp", (L["a"][:8], e16),
+                  CM.model_launches("modexp", M15, impl, e_bits=16)))
+        for op, cols, want in calls:
+            got, counts = self.launched_by(
+                lambda: getattr(mod, op)(*cols, v))
+            self.expect(f"cuda_pairs {op} launches", counts,
+                        {"mul_pairs": want})
+            if got != self.expected(op, cols, v):
+                raise AssertionError(f"cuda_pairs {op} wrong")
+            log(f"cuda_pairs {op}, 2^15-bit modulus: {counts}, exact")
+        big = self.ModService(m_limbs=M18, batch_buckets=(4,),
+                              device=self.dev, impl=impl)
+        Lb = mod_operands(M18, 8, 2 ** 18)
+        xs, v = Lb["x"][:4], Lb["v"]
+        t0 = time.perf_counter()
+        got, counts = self.launched_by(lambda: big.reduce(xs, v))
+        self.expect("cuda_pairs 2^18-bit modulus launches", counts,
+                    {"mul_pairs": CM.precompute_launches(M18, impl)
+                     + CM.model_launches("reduce", M18, impl)})
+        if got != [x % v for x in xs]:
+            raise AssertionError("cuda_pairs reduce at a 2^18-bit modulus "
+                                 "wrong")
+        log(f"cuda_pairs reduce, 2^18-bit modulus, 4 lanes (precompute "
+            f"included): {counts}, {time.perf_counter() - t0:.2f} s, exact")
+
+    def frontend_chaos(self):
+        """Seeded fault plans through AsyncFrontend at 2^15 bits: a compile
+        fault on every cuda_fused plan degrades the division service to
+        cuda_batched; two transient execute faults are retried; in both
+        every answer equals the clean run's, bit for bit.  A compile
+        fault on every cuda_pairs plan of ModArithService has no rung
+        below it on the card, where the ladder never falls to the plain
+        versions: every request fails with a typed error, and the only
+        launches are the Barrett-context precomputes, which come before
+        the compile site.  Nothing is dropped, and the quarantine set and the
+        plans' degraded_from are as the plan says."""
+        FS, FI = self.faults.FaultSpec, self.faults.FaultInjector
+        div_reqs = self.div_requests(M15, DIV_REQUESTS, 150)
+        plans = (
+            ("compile fault on cuda_fused", self.Service(
+                m_limbs=M15, batch_buckets=(16, 64), device=self.dev),
+             div_reqs, self.frontend_answers["divmod 2^15"],
+             [FS(site="compile", impl="cuda_fused", kind="compile",
+                 times=0)], ("cuda_batched", "cuda_fused")),
+            ("transient execute faults", self.Service(
+                m_limbs=M15, batch_buckets=(16, 64), device=self.dev),
+             div_reqs, self.frontend_answers["divmod 2^15"],
+             [FS(site="execute", times=2)], None))
+        for seed, (what, svc, reqs, clean, specs, degraded) in enumerate(
+                plans):
+            inj = FI(specs, seed=seed)
+            outs, health, fe = self.serve(svc, reqs, inj)
+            if outs != clean:
+                raise AssertionError(f"chaos {what}: answers differ from "
+                                     f"the clean run")
+            tot = self.fe_totals(fe)
+            buckets = sorted(svc.kernel_plans)
+            got_plans = {b: (p.impl, p.degraded_from)
+                         for b, p in svc.kernel_plans.items()}
+            if degraded:
+                self.expect(f"chaos {what} quarantine", health["quarantine"],
+                            sorted(f"{degraded[1]}/b{b}/m{M15}"
+                                   for b in buckets))
+                self.expect(f"chaos {what} plans", got_plans,
+                            {b: degraded for b in buckets})
+                self.expect(f"chaos {what} retries, drops",
+                            (tot["retries"], tot["dropped"]), (0, 0))
+                if tot["degraded"] < 1 or tot["faults"] < len(buckets):
+                    raise AssertionError(f"chaos {what}: {tot}")
+            else:
+                self.expect(f"chaos {what} quarantine",
+                            health["quarantine"], [])
+                self.expect(f"chaos {what} totals", tot,
+                            dict(faults=2, degraded=0, retries=2, dropped=0))
+            log(f"chaos {what}: answers == clean run, {tot}, quarantine "
+                f"{health['quarantine']}, plans {got_plans}, fired "
+                f"{inj.fired_total()}")
+            self.report.setdefault("chaos", {})[what] = dict(
+                totals=tot, health=health, faults=inj.stats())
+        what = "compile fault on cuda_pairs"
+        svc = self.ModService(m_limbs=M15, e_limbs=E_LIMBS,
+                              batch_buckets=(16, 64), device=self.dev,
+                              impl="cuda_pairs")
+        inj = FI([FS(site="compile", impl="cuda_pairs", kind="compile",
+                     times=0)], seed=len(plans))
+        reqs = [r for r in self.mod_requests(M15, 151) if r[0] != "modexp"]
+        (outs, health, fe), counts = self.launched_by(
+            lambda: self.serve(svc, reqs, inj, return_exceptions=True))
+        if not (all(isinstance(o, self.errors.ServingError) for o in outs)
+                and any(isinstance(o, self.errors.CompileFault)
+                        for o in outs)):
+            raise AssertionError(f"chaos {what}: not every request failed "
+                                 f"typed: {outs}")
+        tot = self.fe_totals(fe)
+        # only the Barrett-context precomputes ran: they come before the
+        # compile site, and no chunk ran on any impl
+        self.expect(f"chaos {what} launches", counts,
+                    {"mul_pairs": svc.ctx_misses * self.CM.precompute_launches(
+                        M15, "cuda_pairs")})
+        self.expect(f"chaos {what} plans", svc.kernel_plans, {})
+        self.expect(f"chaos {what} quarantine", health["quarantine"],
+                    [f"cuda_pairs/b{b}/m{M15}" for b in (16, 64)])
+        self.expect(f"chaos {what} degraded, retries, drops",
+                    (tot["degraded"], tot["retries"], tot["dropped"]),
+                    (0, 0, 0))
+        log(f"chaos {what}: {len(outs)} requests failed typed "
+            f"({sorted({type(o).__name__ for o in outs})}), {tot}, "
+            f"quarantine {health['quarantine']}, launches {counts} "
+            f"({svc.ctx_misses} context precomputes), fired "
+            f"{inj.fired_total()}")
+        self.report.setdefault("chaos", {})[what] = dict(
+            totals=tot, health=health, faults=inj.stats(),
+            errors=[type(o).__name__ for o in outs])
+
+    # -- phase 6c: the pair kernel's time ------------------------------------
+
+    def timing_pairs(self):
+        """mul_pairs at the q*v shapes of the 2^15 x 256 and 2^18 x 32
+        division cells beside mul_batch at the same shapes: CUDA events
+        around each call (mul_pairs' overlap-add and carry resolution in
+        torch included), the pair kernel's and mul_batch's device times
+        (torch.profiler), the whole mul_pairs call's device time and busy
+        share, the plain version's time and the bound (the limb products
+        of the truncated product, as for mul_batch)."""
+        bm, K = self.bigmul, self.K
+        rows = []
+        for bits in (2 ** 15, 2 ** 18):
+            u, v, q = self.main_inputs[bits]
+            batch, m = q.shape
+            work = (batch * m * (m + 1) // 2, 4 * batch * 3 * m)
+            kernels = (lambda: bm.pair_sums_cuda(q, v, K.tiles_for(m)),
+                       lambda: bm.mul_batch_cuda(q, v, m))
+            dev = self.device_us(list(kernels))
+            row = dict(bits=bits, batch=batch, limbs=m,
+                       mul_pairs_ms=self.time_ms(
+                           lambda: bm.mul_pairs(q, v, m)),
+                       mul_pairs_kernel_device_ms=(dev[0] / 1e3 if dev
+                                                   else None),
+                       mul_pairs_kernel_burst_ms=self.burst_ms(kernels[0]),
+                       mul_batch_ms=self.time_ms(kernels[1]),
+                       mul_batch_kernel_device_ms=(dev[1] / 1e3 if dev
+                                                   else None),
+                       mul_batch_kernel_burst_ms=self.burst_ms(kernels[1]),
+                       mul_pairs_plain_ms=self.time_ms(
+                           lambda: bm.mul_pairs_reference(q, v, m), runs=3),
+                       products=work[0], bytes=work[1])
+            share = self.device_share(lambda: bm.mul_pairs(q, v, m),
+                                      row["mul_pairs_ms"])
+            row.update(mul_pairs_call_device_ms=share["device_ms"],
+                       mul_pairs_call_busy_share=share["device_busy_share"])
+            # the whole division under each kernel impl, in turns
+            for impl in ("cuda_fused", "cuda_pairs", "cuda_pairs",
+                         "cuda_fused"):
+                ms = self.time_ms(lambda: self.S.divmod_batch(
+                    u, v, impl=impl), runs=3)
+                row.setdefault(f"divmod_{impl}_ms", []).append(ms)
+            row["bound_ms"], row["bound_by"] = self.bound(*work)
+            rows.append(row)
+            log(json.dumps(row))
+        r15, r18 = rows
+        # the profiler's device time, or the burst where it saw nothing
+        kms = lambda r, n: (r[f"{n}_kernel_device_ms"],
+                            r[f"{n}_kernel_burst_ms"])
+        self.agg["mul_pairs"] = dict(
+            event_ms=r15["mul_pairs_ms"],
+            device_ms=kms(r15, "mul_pairs")[0] or kms(r15, "mul_pairs")[1],
+            ms_source="profiler" if kms(r15, "mul_pairs")[0] else
+            "cuda_events over 20 back-to-back launches",
+            plain_ms=r15["mul_pairs_plain_ms"], products=r15["products"],
+            bytes=r15["bytes"], shape="q*v of the 2^15 x 256 division cell "
+            "(2048 x 2048 -> 2048 limbs), beside mul_batch at that shape",
+            call_device_ms=r15["mul_pairs_call_device_ms"])
+        for name in ("mul_pairs", "mul_batch"):
+            self.agg[name]["at_2p18"] = dict(
+                shape="q*v of the 2^18 x 32 division cell (16384 x 16384 "
+                "-> 16384 limbs)", event_ms=r18[f"{name}_ms"],
+                device_ms=kms(r18, name)[0], burst_ms=kms(r18, name)[1],
+                bound_ms=r18["bound_ms"], bound_by=r18["bound_by"])
+        self.agg["mul_pairs"]["at_2p18"]["plain_ms"] = \
+            r18["mul_pairs_plain_ms"]
+        self.report["timing_pairs"] = rows
+
     def kernel_line(self, launches):
         """One entry per kernel.  The times and the bound are sums over
         the launches of one divmod_batch at 2^15 bits, batch 256 (for
-        mul_batch: its q*v product there; for barrett: one reduce_shared
-        launch at the 2^15-bit modulus, 256 lanes).  ms is the profiler's device
-        time (CUDA events around the wrapper call where the profiler saw
-        nothing; ms_source says which), event_ms the events' time with
-        the wrapper's host cost."""
+        mul_batch and mul_pairs: their q*v product there, with the
+        2^18 x 32 q*v product under at_2p18; for barrett: one
+        reduce_shared launch at the 2^15-bit modulus, 256 lanes).  ms is
+        the profiler's device time (CUDA events around the wrapper call
+        where the profiler saw nothing; ms_source says which), event_ms
+        the events' time with the wrapper's host cost (for mul_pairs its
+        overlap-add and carry resolution in torch too)."""
         out = []
         for name, (src, tpu) in KERNELS.items():
             a = self.agg[name]
@@ -883,13 +1334,18 @@ class Smoke:
                      ms=a["device_ms"] if dev else a["event_ms"],
                      plain_ms=a["plain_ms"], bound_ms=bms, bound_by=by,
                      library_ms=None, event_ms=a["event_ms"],
-                     ms_source="profiler" if dev else "cuda_events",
+                     ms_source=a.get("ms_source", "profiler" if dev
+                                     else "cuda_events"),
                      shape=a.get("shape",
                                  "one divmod_batch, 2^15 bits, batch 256"))
             if name in GRID_TWINS:
                 e["also_replaces"] = GRID_TWINS[name]
+            for extra in ("at_2p18", "call_device_ms"):
+                if extra in a:
+                    e[extra] = a[extra]
             out.append(e)
         return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -26,10 +26,14 @@ MSB-first window w squarings and one multiply by the per-lane table
 entry, so one modexp is `costmodel.modexp_launches(16 * e_limbs, w)`
 launches whatever the data.
 
+Every function takes `impl` (`kernels/ops.py`; None = cuda_fused).
 Contract: v >= 1 (the service rejects v = 0 before it builds a
 context); `barrett_reduce` raises ValueError for x wider than 2m limbs.
-On the card a modulus is limited to the width whose Barrett window
-(2W limbs) fits shared memory: 2^17-bit moduli run, 2^18-bit ones raise.
+On the card, under cuda_fused and cuda_batched, whose kernels stage
+their operands in shared memory, a modulus is limited to the width whose
+Barrett window (2W limbs) fits: 2^17-bit moduli run, 2^18-bit ones raise
+in `barrett_precompute` before any launch.  cuda_pairs and blocked have
+no such cap and run 2^18-bit moduli; nothing reroutes on its own.
 """
 
 from __future__ import annotations
@@ -84,28 +88,44 @@ def context_from_numpy(v, mu, k, device) -> BarrettContext:
         k=torch.tensor(np.asarray(k, np.int32), device=device))
 
 
-def barrett_precompute(v: torch.Tensor) -> BarrettContext:
-    """One shinv at h = 2m + MU_GUARD: 2 * precompute_iters(m) launches
-    on the card.  v: (m,) for a shared context or (batch, m), v >= 1."""
+def check_width(device, m: int, impl: str | None = None) -> None:
+    """Raise ValueError where impl's kernels cannot run an m-limb
+    modulus on `device`: cuda_fused and cuda_batched stage 2W limbs of
+    the Barrett window in shared memory, so on CUDA they stop at 2^17
+    bits; cuda_pairs, blocked and the CPU have no cap."""
+    impl = K.check_impl(impl)
+    width = barrett_width(m)
+    if (torch.device(device).type == "cuda"
+            and impl in ("cuda_fused", "cuda_batched")
+            and 4 * 2 * width > SMEM_BYTES):
+        raise ValueError(
+            f"a {m}-limb modulus needs a {width}-limb Barrett window; the "
+            f"{impl} kernels stage 2 x {width} limbs, more than shared "
+            f"memory holds (they run moduli up to 2^17 bits; "
+            f"impl='cuda_pairs' has no such cap)")
+
+
+def barrett_precompute(v: torch.Tensor,
+                       impl: str | None = None) -> BarrettContext:
+    """One shinv at h = 2m + MU_GUARD: `costmodel.precompute_launches(m,
+    impl)` launches on the card.  v: (m,) for a shared context or
+    (batch, m), v >= 1."""
     rows = v[None] if v.ndim == 1 else v
     m = rows.shape[-1]
     width, h = barrett_width(m), barrett_h(m)
-    if rows.device.type == "cuda" and 4 * 2 * width > SMEM_BYTES:
-        raise ValueError(
-            f"a {m}-limb modulus needs a {width}-limb Barrett window; the "
-            f"kernels stage 2 x {width} limbs, more than shared memory "
-            f"holds (the card runs moduli up to 2^17 bits)")
+    check_width(rows.device, m, impl)
     rows = rows.to(DTYPE)
     vw = torch.nn.functional.pad(rows, (0, width - m)).contiguous()
     hs = torch.full((rows.shape[0],), h, dtype=DTYPE, device=v.device)
-    mu = S.shinv_batch(vw, hs, CM.precompute_iters(m))
+    mu = S.shinv_batch(vw, hs, CM.precompute_iters(m), impl=impl)
     k = A.prec(rows)
     if v.ndim == 1:
         return BarrettContext(v=rows[0], mu=mu[0], k=k[0])
     return BarrettContext(v=rows.contiguous(), mu=mu, k=k)
 
 
-def barrett_reduce(ctx: BarrettContext, x: torch.Tensor) -> torch.Tensor:
+def barrett_reduce(ctx: BarrettContext, x: torch.Tensor,
+                   impl: str | None = None) -> torch.Tensor:
     """x mod v for x (batch, <= 2m) limbs, any x < B^(2m): (batch, m)
     limbs, one launch.  x * mu < B^(2W) and q * v <= x + v < B^W, so
     neither truncation cuts anything the result needs."""
@@ -113,19 +133,20 @@ def barrett_reduce(ctx: BarrettContext, x: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] > 2 * m:
         raise ValueError(f"x has {x.shape[-1]} limbs; reduce handles "
                          f"<= {2 * m}")
-    r = K.fused_barrett(x.contiguous(), ctx.mu, ctx.v, h=barrett_h(m))
+    r = K.fused_barrett(x.contiguous(), ctx.mu, ctx.v, h=barrett_h(m),
+                        impl=impl)
     return r[:, :m]
 
 
-def modmul(ctx: BarrettContext, a: torch.Tensor,
-           b: torch.Tensor) -> torch.Tensor:
+def modmul(ctx: BarrettContext, a: torch.Tensor, b: torch.Tensor,
+           impl: str | None = None) -> torch.Tensor:
     """(a * b) mod v for a, b (batch, m) limbs < B^m (not necessarily
     reduced): the full product, then one reduction."""
-    return barrett_reduce(ctx, K.mul_batch(a, b, 2 * ctx.m))
+    return barrett_reduce(ctx, K.mul_batch(a, b, 2 * ctx.m, impl), impl)
 
 
 def modexp(ctx: BarrettContext, a: torch.Tensor, e: torch.Tensor, *,
-           window_bits: int = 4) -> torch.Tensor:
+           window_bits: int = 4, impl: str | None = None) -> torch.Tensor:
     """a^e mod v by the fixed-window ladder with a constant trip count.
 
     a: (batch, <= m) limbs, e: (batch, e_limbs) limbs.  Every lane runs
@@ -137,16 +158,16 @@ def modexp(ctx: BarrettContext, a: torch.Tensor, e: torch.Tensor, *,
     if LOG_BASE % window_bits != 0:
         raise ValueError(f"window_bits must divide {LOG_BASE}")
     m, batch = ctx.m, a.shape[0]
-    a_r = barrett_reduce(ctx, a)
+    a_r = barrett_reduce(ctx, a, impl)
     zero = torch.zeros(batch, dtype=DTYPE, device=a.device)
-    one_r = barrett_reduce(ctx, one_hot_pow(zero, m))         # 1 mod v
+    one_r = barrett_reduce(ctx, one_hot_pow(zero, m), impl)   # 1 mod v
 
     # table[i] = a^i mod v; the 2^w-th product is computed and dropped,
     # as the JAX scan computes it
     table, prev = [], one_r
     for _ in range(1 << window_bits):
         table.append(prev)
-        prev = modmul(ctx, prev, a_r)
+        prev = modmul(ctx, prev, a_r, impl)
     table = torch.stack(table, dim=1)                         # (batch, 2^w, m)
 
     lanes = torch.arange(batch, device=a.device)
@@ -157,8 +178,8 @@ def modexp(ctx: BarrettContext, a: torch.Tensor, e: torch.Tensor, *,
         start = (n_win - 1 - i) * window_bits                 # MSB first
         d = (e[:, start // LOG_BASE] >> (start % LOG_BASE)) & wmask
         for _ in range(window_bits):
-            r = modmul(ctx, r, r)
-        r = modmul(ctx, r, table[lanes, d.long()])
+            r = modmul(ctx, r, r, impl)
+        r = modmul(ctx, r, table[lanes, d.long()], impl)
     return r
 
 
@@ -166,22 +187,25 @@ def modexp(ctx: BarrettContext, a: torch.Tensor, e: torch.Tensor, *,
 # batched entry points
 # ---------------------------------------------------------------------------
 
-def reduce_batch(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def reduce_batch(x: torch.Tensor, v: torch.Tensor,
+                 impl: str | None = None) -> torch.Tensor:
     """Per-lane moduli: x (batch, <= 2m), v (batch, m); the precompute
     runs in the call."""
-    return barrett_reduce(barrett_precompute(v), x)
+    return barrett_reduce(barrett_precompute(v, impl), x, impl)
 
 
-def modmul_batch(a: torch.Tensor, b: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
-    return modmul(barrett_precompute(v), a, b)
+def modmul_batch(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor,
+                 impl: str | None = None) -> torch.Tensor:
+    return modmul(barrett_precompute(v, impl), a, b, impl)
 
 
 def modexp_batch(a: torch.Tensor, e: torch.Tensor, v: torch.Tensor,
-                 window_bits: int = 4) -> torch.Tensor:
+                 window_bits: int = 4,
+                 impl: str | None = None) -> torch.Tensor:
     """Per-lane moduli: the precompute runs in the call (no
     amortization)."""
-    return modexp(barrett_precompute(v), a, e, window_bits=window_bits)
+    return modexp(barrett_precompute(v, impl), a, e,
+                  window_bits=window_bits, impl=impl)
 
 
 # Shared-modulus variants: one context (cached by the service) for the
@@ -193,15 +217,17 @@ def _shared(ctx: BarrettContext) -> BarrettContext:
     return ctx
 
 
-def reduce_shared(ctx: BarrettContext, x: torch.Tensor) -> torch.Tensor:
-    return barrett_reduce(_shared(ctx), x)
+def reduce_shared(ctx: BarrettContext, x: torch.Tensor,
+                  impl: str | None = None) -> torch.Tensor:
+    return barrett_reduce(_shared(ctx), x, impl)
 
 
-def modmul_shared(ctx: BarrettContext, a: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
-    return modmul(_shared(ctx), a, b)
+def modmul_shared(ctx: BarrettContext, a: torch.Tensor, b: torch.Tensor,
+                  impl: str | None = None) -> torch.Tensor:
+    return modmul(_shared(ctx), a, b, impl)
 
 
 def modexp_shared(ctx: BarrettContext, a: torch.Tensor, e: torch.Tensor,
-                  window_bits: int = 4) -> torch.Tensor:
-    return modexp(_shared(ctx), a, e, window_bits=window_bits)
+                  window_bits: int = 4,
+                  impl: str | None = None) -> torch.Tensor:
+    return modexp(_shared(ctx), a, e, window_bits=window_bits, impl=impl)

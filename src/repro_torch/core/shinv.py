@@ -6,9 +6,12 @@ every per-instance scalar (h, k, hk, need, l, m, s, active) is a
 (batch,) tensor on the operands' device.  The Refine loop has the same
 static trip count `refine_iters(M)` and the same static window per
 iteration as the JAX code, so nothing in it reads a value back to the
-host: each iteration is one `kernels.ops.fused_step` (two kernel launches
-on CUDA) and the finalization one `fused_correct`, 2 * refine_iters + 1
-launches per batched division.
+host: each iteration is one `kernels.ops.fused_step` and the
+finalization one `fused_correct`.  Under the default impl cuda_fused
+that is two kernel launches per iteration and one for the finalization
+on CUDA, 2 * refine_iters + 1 per batched division; `impl` picks
+another rung of the registry (`kernels/ops.py`) with the same result
+bit for bit.
 
 Zero-divisor contract (as in the JAX package): divmod(u, 0) = (0, u)
 and shinv(0, h) = 0.
@@ -50,7 +53,8 @@ def _initial_w0(V: torch.Tensor):
             (q1 >> LOG_BASE).to(DTYPE))
 
 
-def _refine(v, h, k, w, *, width: int, iters_max: int, windowed: bool = True):
+def _refine(v, h, k, w, *, width: int, iters_max: int, windowed: bool = True,
+            impl: str | None = None):
     """Guarded shorter-iterate/divisor-prefix refinement loop; iteration
     i runs at the static window `refine_window(i, width, windowed)`."""
     g = GUARD
@@ -65,13 +69,14 @@ def _refine(v, h, k, w, *, width: int, iters_max: int, windowed: bool = True):
         m = torch.clamp(torch.minimum(hk + 1 - l, l), min=0)
         s = torch.clamp(k - 2 * l + 1 - g, min=0)
         w = K.fused_step(v, w, h=k + l + m - s + g, m=m, l=l, s=s,
-                         active=active, g=g, win=wi)
+                         active=active, g=g, win=wi, impl=impl)
         l = torch.where(active, l + m - 1, l)
     return A.shift(w, h - k - l - g)
 
 
 def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
-                windowed: bool = True) -> torch.Tensor:
+                windowed: bool = True,
+                impl: str | None = None) -> torch.Tensor:
     """shinv_h(v) + lambda, lambda in {0, 1} (Theorem 2), per row.
     v: (batch, W) limbs, h: (batch,) int32.  Rows with v = 0 give 0."""
     width = v.shape[-1]
@@ -96,7 +101,7 @@ def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
     w0[:, 0], w0[:, 1], w0[:, 2] = _initial_w0(V)
 
     w = _refine(v_eff, h_eff, k, w0, width=width, iters_max=iters_max,
-                windowed=windowed)
+                windowed=windowed, impl=impl)
 
     w = torch.where(case_pow[:, None], one_hot_pow(h_eff - k, width), w)
     w = torch.where(case_one[:, None], one_hot_pow(torch.zeros_like(h), width),
@@ -105,11 +110,12 @@ def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
     return torch.where(zero, torch.zeros_like(w), w)
 
 
-def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True):
+def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True,
+                 impl: str | None = None):
     """Batched division (q, r) with u = q * v + r, 0 <= r < v; u, v:
     (batch, M) int32 limbs on one device, which the computation follows
-    (CUDA: 2 * refine_iters(M) + 1 kernel launches).  divmod(u, 0) =
-    (0, u)."""
+    (CUDA: `costmodel.divmod_launches(M, impl)` kernel launches,
+    2 * refine_iters(M) + 1 under cuda_fused).  divmod(u, 0) = (0, u)."""
     if u.shape != v.shape or u.ndim != 2:
         raise ValueError(f"expected equal (batch, M) operands, got "
                          f"{tuple(u.shape)} and {tuple(v.shape)}")
@@ -118,6 +124,7 @@ def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True):
     uw = torch.nn.functional.pad(u.to(DTYPE), pad).contiguous()
     vw = torch.nn.functional.pad(v.to(DTYPE), pad).contiguous()
     h = A.prec(uw)
-    si = shinv_batch(vw, h, refine_iters(m_limbs), windowed=windowed)
-    q, r = K.fused_correct(uw, vw, si, h=h)
+    si = shinv_batch(vw, h, refine_iters(m_limbs), windowed=windowed,
+                     impl=impl)
+    q, r = K.fused_correct(uw, vw, si, h=h, impl=impl)
     return q[:, :m_limbs], r[:, :m_limbs]

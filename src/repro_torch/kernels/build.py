@@ -5,7 +5,8 @@ into `_build/lib<name>-<hash>.so` beside this file (the hash covers the
 sources and the flags, so an edited source is rebuilt).  The libraries
 expose plain C entry points that take device pointers and the CUDA
 stream as `void*`, and return a `cudaError_t` that the Python wrappers
-turn into an exception.
+turn into an exception: `BuildError` when a library does not build or
+load, `LaunchError` when a launch is refused or fails.
 
 Every kernel wrapper counts its launches here (`count`), so a caller can
 show that a run went through the kernels: `reset_launch_counts()`
@@ -27,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("mul", "step", "correct", "barrett")
+SOURCES = ("mul", "step", "correct", "barrett", "pairs")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -35,20 +36,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _counts: dict[str, int] = {}
+_count_lock = threading.Lock()
 build_seconds: float | None = None
 
 
+class BuildError(RuntimeError):
+    """A kernel library did not build (nvcc missing or failing) or did
+    not load."""
+
+
+class LaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error (refused geometry, out of
+    memory, a fault during the run)."""
+
+    def __init__(self, what: str, err: int):
+        self.code = err
+        super().__init__(f"{what} failed with cudaError_t {err}")
+
+
 def count(name: str) -> None:
-    """Record one launch of kernel `name` (called by its wrapper)."""
-    _counts[name] = _counts.get(name, 0) + 1
+    """Record one launch of kernel `name` (called by its wrapper; safe
+    from several threads)."""
+    with _count_lock:
+        _counts[name] = _counts.get(name, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_counts)
+    with _count_lock:
+        return dict(_counts)
 
 
 def reset_launch_counts() -> None:
-    _counts.clear()
+    with _count_lock:
+        _counts.clear()
 
 
 def nvcc() -> str:
@@ -62,7 +82,7 @@ def nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise BuildError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 def _digest(name: str) -> str:
@@ -87,6 +107,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "correct_scratch_bytes": [I],
         "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P],
         "barrett_scratch_bytes": [I],
+        "mul_pairs_launch": [P, P, P, I, I, I, I, P],
+        "mul_pairs_tile": [],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):
@@ -121,12 +143,16 @@ def build_all() -> dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 for _, (p, _t, _s) in procs.items():
                     p.wait()
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+                raise BuildError(f"nvcc failed for {name}.cu:\n{out}")
             os.replace(tmp, so)
         (BUILD_DIR / "ptxas.log").write_text(
             "".join(f"== {n}.cu\n{o}" for n, o in logs.items()))
         for name in SOURCES:
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest(name)}.so"))
+            so = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+            try:
+                lib = ctypes.CDLL(str(so))
+            except OSError as exc:
+                raise BuildError(f"cannot load {so}: {exc}") from exc
             _declare(lib)
             _libs[name] = lib
         build_seconds = time.perf_counter() - t0
@@ -138,9 +164,9 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise when a C entry point returned a CUDA error."""
+    """Raise LaunchError when a C entry point returned a CUDA error."""
     if err != 0:
-        raise RuntimeError(f"{what} failed with cudaError_t {err}")
+        raise LaunchError(what, err)
 
 
 # Dynamic shared memory a block may use on Hopper; the kernels stage

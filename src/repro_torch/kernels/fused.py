@@ -15,8 +15,10 @@ stage covers every width.  `powdiff_reference`, `update_reference`,
 `step_reference`, `correct_reference` and `barrett_reference` are the
 plain PyTorch versions (the JAX package's `_powdiff_reference`,
 `step_reference`, `correct_reference` and `barrett_reference`,
-batched): `kernels/ops.py` runs them for CPU tensors, and the tests
-and `chip_smoke.py` hold the kernels to them.
+batched).  Each takes the product as `mul` (default the plain
+`mul_plain`): `kernels/ops.py` runs them for CPU tensors and, with the
+impl's product, for every impl but cuda_fused, and the tests and
+`chip_smoke.py` hold the kernels to them.
 """
 
 from __future__ import annotations
@@ -42,17 +44,18 @@ def _row(c: torch.Tensor) -> torch.Tensor:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def powdiff_reference(v, w, hpd, lpd, s, *, win: int):
+def powdiff_reference(v, w, hpd, lpd, s, *, win: int, mul=mul_plain):
     """Launch 1 of a Refine iteration: (sign, x = |B^hpd - vp * wq|) per
     Algorithm 2, with vp = shift(v, -s) and wq = w, both cut to the
     window.  hpd = h - m and lpd = l - g, (batch,) int32.  Returns sign
-    (batch,) bool and x (batch, W), zero above the window."""
+    (batch,) bool and x (batch, W), zero above the window.  `mul` is
+    the product (u, v, out_width) -> limbs."""
     width = v.shape[-1]
     vp = A.shift(v, -s)[:, :win]
     wq = w[:, :win]
     pv, pw = A.prec(vp), A.prec(wq)
     L = pv + pw - lpd + 1
-    p = mul_plain(vp, wq, 2 * win)
+    p = mul(vp, wq, 2 * win)
 
     vwz = A.is_zero(vp) | A.is_zero(wq)
     full = vwz | (L >= hpd)
@@ -76,14 +79,14 @@ def powdiff_reference(v, w, hpd, lpd, s, *, win: int):
     return sign, _pad_to(x, width)
 
 
-def update_reference(w, x, sign, h, m, active, *, win: int):
+def update_reference(w, x, sign, h, m, active, *, win: int, mul=mul_plain):
     """Launch 2 of a Refine iteration: tmp = wq * x, shift(wq, m) +/-
     floor(tmp / B^(h-2m)), the -1 normalization shift, and the
     active-lane select back into the full-width iterate."""
     width = w.shape[-1]
     w2 = 2 * win
     wq = w[:, :win]
-    tmp = mul_plain(wq, x[:, :win], w2)
+    tmp = mul(wq, x[:, :win], w2)
     sh = A.shift(tmp, 2 * m - h)[:, :win]         # 2m - h <= 0 here
     wm = A.shift(wq, m)
     res_pos = A.add(wm, sh)
@@ -97,20 +100,22 @@ def update_reference(w, x, sign, h, m, active, *, win: int):
     return torch.where(_row(active), w_new, w)
 
 
-def step_reference(v, w, *, h, m, l, s, active, g: int, win: int):
-    """One Refine iteration as the plain composition (the JAX package's
-    `kernels/fused.py:step_reference`, batched)."""
-    sign, x = powdiff_reference(v, w, h - m, l - g, s, win=win)
-    return update_reference(w, x, sign, h, m, active, win=win)
+def step_reference(v, w, *, h, m, l, s, active, g: int, win: int,
+                   mul=mul_plain):
+    """One Refine iteration as the plain composition with the product
+    `mul` (the JAX package's `kernels/fused.py:step_reference`,
+    batched)."""
+    sign, x = powdiff_reference(v, w, h - m, l - g, s, win=win, mul=mul)
+    return update_reference(w, x, sign, h, m, active, win=win, mul=mul)
 
 
-def correct_reference(u, v, si, *, h):
+def correct_reference(u, v, si, *, h, mul=mul_plain):
     """Algorithm 3 finalization with the delta in {-1, 0, +1}
     correction; divmod(u, 0) = (0, u)."""
     width = u.shape[-1]
-    p = mul_plain(u, si, 2 * width)               # double-width product
+    p = mul(u, si, 2 * width)                     # double-width product
     q = A.shift(p, -h)[:, :width]
-    mm = mul_plain(v, q, width)                   # v * q fits the width
+    mm = mul(v, q, width)                         # v * q fits the width
 
     d_neg = A.lt(u, mm)                           # delta = -1
     q = torch.where(_row(d_neg), A.sub_scalar(q, 1), q)
@@ -130,7 +135,7 @@ def _rows(a: torch.Tensor, batch: int, width: int) -> torch.Tensor:
     return a.expand(batch, width) if a.ndim == 1 else a
 
 
-def barrett_branches(x, mu, v, *, h: int):
+def barrett_branches(x, mu, v, *, h: int, mul=mul_plain):
     """The Barrett reduction core as the plain composition, and the
     correction each lane took: (r, over, under).
 
@@ -144,9 +149,9 @@ def barrett_branches(x, mu, v, *, h: int):
     x = _pad_to(x, width)
     mu = _rows(mu, batch, width)
     v = _rows(v, batch, width)
-    p = mul_plain(x, mu, 2 * width)
+    p = mul(x, mu, 2 * width)
     q = A.shift(p, -h)[:, :width]
-    qv = mul_plain(q, v, width)
+    qv = mul(q, v, width)
 
     over = A.lt(x, qv)                            # qhat = q + 1
     qv = torch.where(_row(over), A.sub(qv, v), qv)
@@ -156,10 +161,10 @@ def barrett_branches(x, mu, v, *, h: int):
     return r, over, under
 
 
-def barrett_reference(x, mu, v, *, h: int):
+def barrett_reference(x, mu, v, *, h: int, mul=mul_plain):
     """Barrett reduction core (two truncated products + two conditional
     subtracts) -> r (batch, W); see `barrett_branches`."""
-    return barrett_branches(x, mu, v, h=h)[0]
+    return barrett_branches(x, mu, v, h=h, mul=mul)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,40 @@
-"""Multiplication entry points and the fused division-step and Barrett
-dispatch.
+"""Multiplication entry points, the impl registry and the fused
+division-step and Barrett dispatch.
 
-The dispatch rule is the device of the operands: a CPU tensor goes to
-the plain PyTorch version, a CUDA tensor to the hand-written Hopper
-kernel (kernels/bigmul.py, kernels/fused.py), and any other device
-raises.  There is no fallback from a kernel to its plain version.
+Four interchangeable implementations of every product (all exact and
+bit-identical, so a caller may swap them freely):
+
+  cuda_fused    the fused division-step and Barrett kernels
+                (kernels/fused.py; JAX impl "pallas_fused"); a bare
+                product is the batched kernel.  The default.
+  cuda_batched  the batched product kernel, one block per instance
+                (`bigmul.mul_batch_cuda`; JAX "pallas_batched"), with the
+                division-step and Barrett glue in torch.
+  cuda_pairs    the pair-product kernel, one block per (instance, output
+                diagonal) (`bigmul.mul_pairs`; JAX "pallas"), glue in
+                torch.
+  blocked       the plain product `mul_plain` (JAX "blocked"): torch ops
+                only, no kernel of this package.
+
+JAX's "scan" oracle is not ported.  The unfused impls run the same
+compositions as the JAX package's `step_reference` & co. with their
+own product.  `fallback_chain` is the serving tier's degradation
+ladder: cuda_fused -> cuda_batched -> blocked and cuda_pairs ->
+blocked, as in the JAX package; on the card it ends at the last kernel
+rung, so no kernel is ever stood in for by the plain versions there.
+
+Device rule: a CPU tensor goes to each kernel's plain version, a CUDA
+tensor to the hand-written Hopper kernel, and any other device raises.
+There is no fallback from a kernel to its plain version.
 
 `mul_plain` is the plain product.  It is exact on both devices: limbs
 are base 2^16, so one limb product is < 2^32 and a column sum of a
-product of W-limb operands is < W * (2^16 - 1)^2 < 2^46 for
-W <= 16392 (the 2^18-bit working width), far inside float64's 2^53
-exact-integer range.  CUDA has no integer matrix product, so the
-column sums come from float64 block-Toeplitz products (exact, since
-every partial sum is an integer < 2^53); carries are resolved in int64
-exactly as the kernels resolve them (`csrc/limbs.cuh:resolve`).
+product of W-limb operands is < W * (2^16 - 1)^2 < 2^48 for W <= 2^16,
+far inside float64's 2^53 exact-integer range.  CUDA has no integer
+matrix product, so the per-diagonal sums come from float64
+block-Toeplitz products (exact, since every partial sum is an integer
+< 2^53); carries are resolved in int64 exactly as the kernels resolve
+them (`csrc/limbs.cuh:resolve`).
 """
 
 from __future__ import annotations
@@ -23,8 +44,52 @@ import torch
 from repro_torch.core import arith as A
 from repro_torch.core.bigint import DTYPE, LOG_BASE, MASK
 
-# Limbs per Toeplitz tile of the plain product.
+# Limbs per tile of the plain product and of the pair kernel
+# (csrc/pairs.cu:kT).
 BLOCK_T = 128
+
+IMPLS = ("blocked", "cuda_pairs", "cuda_batched", "cuda_fused")
+# the JAX package's name of each impl
+JAX_IMPLS = {"blocked": "blocked", "cuda_pairs": "pallas",
+             "cuda_batched": "pallas_batched",
+             "cuda_fused": "pallas_fused"}
+
+DEFAULT_IMPL = "cuda_fused"
+
+_FALLBACK = {"cuda_fused": "cuda_batched",
+             "cuda_batched": "blocked",
+             "cuda_pairs": "blocked"}
+
+
+def default_impl() -> str:
+    return DEFAULT_IMPL
+
+
+def check_impl(name: str | None) -> str:
+    """The concrete impl for an optional name (None = the default);
+    raises ValueError for an unknown one."""
+    name = name or DEFAULT_IMPL
+    if name not in IMPLS:
+        raise ValueError(f"unknown impl {name!r}; expected one of {IMPLS}")
+    return name
+
+
+def fallback_impl(name: str) -> str | None:
+    """The next impl down the degradation ladder, or None when `name`
+    is terminal ("blocked" runs torch ops only)."""
+    return _FALLBACK.get(check_impl(name))
+
+
+def fallback_chain(name: str, device=None) -> list[str]:
+    """`name` followed by every impl below it on the ladder.  For work
+    on the card (`device` of type "cuda") the chain stops at the last
+    kernel rung: "blocked" runs there only when it is asked for."""
+    chain = [check_impl(name)]
+    while chain[-1] in _FALLBACK:
+        chain.append(_FALLBACK[chain[-1]])
+    if device is not None and torch.device(device).type == "cuda":
+        chain = chain[:1] + [i for i in chain[1:] if i != "blocked"]
+    return chain
 
 
 def _check_device(*ts: torch.Tensor) -> str:
@@ -51,19 +116,25 @@ def resolve_columns(col: torch.Tensor) -> torch.Tensor:
     return ((f + c) & MASK).to(DTYPE)
 
 
-def mul_plain(u: torch.Tensor, v: torch.Tensor, out_width: int) -> torch.Tensor:
-    """Exact (u * v) mod B^out_width for (batch, Wu) x (batch, Wv) limb
-    tensors, on either device, in plain PyTorch."""
+def pair_sums_plain(u: torch.Tensor, v: torch.Tensor,
+                    d_keep: int) -> torch.Tensor:
+    """Raw per-diagonal sums of the tiled product, in plain PyTorch: the
+    plain version of `csrc/pairs.cu`.
+
+    u (batch, Wu), v (batch, Wv) limbs; tile i of u is limbs [i*T,
+    (i+1)*T).  Returns (batch, ndiag, 2T) int64 with raw[b, d, s] = sum
+    over tile pairs i + j = d of sum_c u_i[c] * v_j[s - c], for the
+    diagonals d < min(nu + nv - 1, d_keep)."""
     t = BLOCK_T
     batch = u.shape[0]
-    u = u[:, :out_width]                      # limbs >= out_width can't matter
-    v = v[:, :out_width]
-    nu = max(-(-u.shape[1] // t), 1)
-    nv = max(-(-v.shape[1] // t), 1)
+    nu = min(max(-(-u.shape[1] // t), 1), d_keep)
+    nv = min(max(-(-v.shape[1] // t), 1), d_keep)
+    ndiag = min(nu + nv - 1, d_keep)
     f64 = torch.float64
-    uf = torch.nn.functional.pad(u.to(f64), (0, nu * t - u.shape[1]))
+    u, v = u[:, :nu * t].to(f64), v[:, :nv * t].to(f64)
+    uf = torch.nn.functional.pad(u, (0, nu * t - u.shape[1]))
     uf = uf.reshape(batch, nu, t)
-    vg = torch.nn.functional.pad(v.to(f64), (t, nv * t - v.shape[1] + t))
+    vg = torch.nn.functional.pad(v, (t, nv * t - v.shape[1] + t))
     # toep[b, j, c, s] = v[j*t + s - c] for 0 <= s - c < t, else 0
     dev = u.device
     j = torch.arange(nv, device=dev)[:, None, None]
@@ -71,70 +142,133 @@ def mul_plain(u: torch.Tensor, v: torch.Tensor, out_width: int) -> torch.Tensor:
     s = torch.arange(2 * t, device=dev)[None, None, :]
     toep = vg[:, j * t + s - c + t]
     toep = toep * ((s - c >= 0) & (s - c < t)).to(f64)
-    raw = torch.zeros(batch, (nu + nv + 1) * t, dtype=f64, device=dev)
+    raw = torch.zeros(batch, ndiag, 2 * t, dtype=f64, device=dev)
     for i in range(nu):
-        if i * t >= out_width:
+        nj = min(nv, ndiag - i)                   # pairs with i + j < ndiag
+        if nj <= 0:
             break
-        prods = torch.einsum("bc,bjcs->bjs", uf[:, i], toep)   # (b, nv, 2t)
-        raw[:, i * t:(i + nv) * t] += prods[..., :t].reshape(batch, -1)
-        raw[:, (i + 1) * t:(i + 1 + nv) * t] += prods[..., t:].reshape(
-            batch, -1)
-    col = raw.to(torch.int64)[:, :out_width]
+        raw[:, i:i + nj] += torch.einsum("bc,bjcs->bjs", uf[:, i],
+                                         toep[:, :nj])
+    return raw.to(torch.int64)
+
+
+def columns_from_pairs(raw: torch.Tensor, out_width: int) -> torch.Tensor:
+    """Per-diagonal sums (batch, ndiag, 2T) -> canonical limbs (batch,
+    out_width): diagonal d is added at limb offset d * T (the
+    overlap-add), then `resolve_columns`.  Shared by the pair kernel and
+    every plain product, so the CPU runs the resolution the card runs."""
+    t = BLOCK_T
+    batch, ndiag, _ = raw.shape
+    col = torch.zeros(batch, (ndiag + 1) * t, dtype=torch.int64,
+                      device=raw.device)
+    col[:, :ndiag * t] += raw[..., :t].reshape(batch, -1)
+    col[:, t:] += raw[..., t:].reshape(batch, -1)
+    col = col[:, :out_width]
     if col.shape[1] < out_width:
         col = torch.nn.functional.pad(col, (0, out_width - col.shape[1]))
     return resolve_columns(col)
 
 
-def mul_batch(u: torch.Tensor, v: torch.Tensor, out_width: int) -> torch.Tensor:
-    """Batched exact product: (batch, Wu) x (batch, Wv) -> (batch,
-    out_width) limbs, mod B^out_width."""
+def tiles_for(width: int) -> int:
+    """Diagonals a product truncated to `width` limbs can see: a pair on
+    diagonal d writes limbs [d*T, (d+2)*T), and carries only travel up,
+    so it matters iff d*T < width."""
+    return max(-(-width // BLOCK_T), 1)
+
+
+def mul_plain(u: torch.Tensor, v: torch.Tensor, out_width: int) -> torch.Tensor:
+    """Exact (u * v) mod B^out_width for (batch, Wu) x (batch, Wv) limb
+    tensors, on either device, in plain PyTorch."""
+    return columns_from_pairs(
+        pair_sums_plain(u, v, tiles_for(out_width)), out_width)
+
+
+def _mul_batched(u: torch.Tensor, v: torch.Tensor,
+                 out_width: int) -> torch.Tensor:
+    """The batched kernel on CUDA tensors, its plain version on CPU
+    ones."""
     if _check_device(u, v) == "cuda":
         from . import bigmul
         return bigmul.mul_batch_cuda(u, v, out_width)
     return mul_plain(u, v, out_width)
 
 
-def mul(u: torch.Tensor, v: torch.Tensor, out_width: int) -> torch.Tensor:
+def _mul_pairs(u: torch.Tensor, v: torch.Tensor,
+               out_width: int) -> torch.Tensor:
+    from . import bigmul
+    return bigmul.mul_pairs(u, v, out_width)
+
+
+_PRODUCTS = {"blocked": mul_plain, "cuda_pairs": _mul_pairs,
+             "cuda_batched": _mul_batched, "cuda_fused": _mul_batched}
+
+
+def product(impl: str | None):
+    """impl's product as a function (u, v, out_width) -> limbs: what
+    `mul_batch` and the unfused compositions of kernels/fused.py
+    multiply with (cuda_fused's bare product is the batched kernel)."""
+    return _PRODUCTS[check_impl(impl)]
+
+
+def mul_batch(u: torch.Tensor, v: torch.Tensor, out_width: int,
+              impl: str | None = None) -> torch.Tensor:
+    """Batched exact product: (batch, Wu) x (batch, Wv) -> (batch,
+    out_width) limbs, mod B^out_width, with impl's product."""
+    return product(impl)(u, v, out_width)
+
+
+def mul(u: torch.Tensor, v: torch.Tensor, out_width: int,
+        impl: str | None = None) -> torch.Tensor:
     """Exact u * v truncated to out_width limbs for one (W,) instance."""
-    return mul_batch(u[None], v[None], out_width)[0]
+    return mul_batch(u[None], v[None], out_width, impl)[0]
 
 
-def mulmod(u: torch.Tensor, v: torch.Tensor, L, out_width: int) -> torch.Tensor:
+def mulmod(u: torch.Tensor, v: torch.Tensor, L, out_width: int,
+           impl: str | None = None) -> torch.Tensor:
     """(u * v) mod B^L per row, with L an int or a (batch,) tensor."""
-    return A.mask_below(mul_batch(u, v, out_width), L)
+    return A.mask_below(mul_batch(u, v, out_width, impl), L)
 
 
-def fused_step(v, w, *, h, m, l, s, active, g: int, win: int):
+def _fused(impl, *ts) -> bool:
+    """Whether the fused kernel runs: impl cuda_fused on CUDA tensors.
+    Every other case runs the plain composition with impl's product."""
+    return check_impl(impl) == "cuda_fused" and _check_device(*ts) == "cuda"
+
+
+def fused_step(v, w, *, h, m, l, s, active, g: int, win: int,
+               impl: str | None = None):
     """One guarded Refine iteration on the full-width iterate.
 
     v, w: (batch, W) limbs; h, m, l, s: (batch,) int32; active:
     (batch,) bool; g the guard digit count, win this iteration's static
-    window.  Two kernel launches on CUDA (powdiff, update), the plain
-    composition on the CPU."""
+    window.  Under cuda_fused two kernel launches on CUDA (powdiff,
+    update); otherwise the plain composition with impl's product (two
+    product launches under cuda_batched and cuda_pairs)."""
     from . import fused
-    if _check_device(v, w) == "cuda":
+    if _fused(impl, v, w):
         return fused.step_cuda(v, w, h=h, m=m, l=l, s=s, active=active,
                                g=g, win=win)
     return fused.step_reference(v, w, h=h, m=m, l=l, s=s, active=active,
-                                g=g, win=win)
+                                g=g, win=win, mul=product(impl))
 
 
-def fused_correct(u, v, si, *, h):
+def fused_correct(u, v, si, *, h, impl: str | None = None):
     """divmod finalization -> (q, r) at width W, with divmod(u, 0) =
-    (0, u).  One kernel launch on CUDA, the plain composition on the
-    CPU."""
+    (0, u).  One kernel launch under cuda_fused on CUDA, else the plain
+    composition with impl's product (two products)."""
     from . import fused
-    if _check_device(u, v, si) == "cuda":
+    if _fused(impl, u, v, si):
         return fused.correct_cuda(u, v, si, h=h)
-    return fused.correct_reference(u, v, si, h=h)
+    return fused.correct_reference(u, v, si, h=h, mul=product(impl))
 
 
-def fused_barrett(x, mu, v, *, h: int):
+def fused_barrett(x, mu, v, *, h: int, impl: str | None = None):
     """Barrett reduction core -> r at width W (the caller cuts it to the
     modulus width).  x: (batch, <= W) limbs; mu: (W,) shared or
     (batch, W) per lane; v likewise, at most W limbs; h a static int.
-    One kernel launch on CUDA, the plain composition on the CPU."""
+    One kernel launch under cuda_fused on CUDA, else the plain
+    composition with impl's product (two products)."""
     from . import fused
-    if _check_device(x, mu, v) == "cuda":
+    if _fused(impl, x, mu, v):
         return fused.barrett_cuda(x, mu, v, h=h)
-    return fused.barrett_reference(x, mu, v, h=h)
+    return fused.barrett_reference(x, mu, v, h=h, mul=product(impl))

@@ -1,2 +1,2 @@
-"""Request batching, the division service and the modular-arithmetic
-service."""
+"""Request batching, the division and modular-arithmetic services, and
+the fault-tolerant async frontend over them."""

@@ -2,38 +2,70 @@
 
 Requests are Python ints; the service validates them, packs each chunk
 of a request into a bucket-sized (bucket, m_limbs) limb batch on its
-device, runs `core.shinv.divmod_batch` there, and unpacks exact
-results.  The port of `repro/serving/bigint_service.py` without fault
-injection, impl overrides or trace profiles.
+device, runs `core.shinv.divmod_batch` there with its impl, and unpacks
+exact results.  The port of `repro/serving/bigint_service.py` without
+trace profiles or a mesh.
+
+Observability: the first use of an (op, bucket, impl) builds its
+`KernelPlan` (`kernel_plans`, `snapshot()`); every request records
+runtime counters on `telemetry.registry`.  The fault-injection sites of
+serving/faults.py (compile, transfer, execute) fire when an injector is
+installed.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from repro_torch.core import bigint as bi
 from repro_torch.core import shinv as S
+from repro_torch.kernels import ops as K
+from repro_torch.obs import telemetry as T
 from . import batching as BT
 from . import errors as E
 
 
 class BigintDivisionService:
+    """Batched exact division at m_limbs limbs.
+
+    impl:   the registry impl (`kernels/ops.py`; None = cuda_fused);
+            `divide(..., impl=)` overrides it per call
+    device: where the work runs ("cuda" needs a card; "cpu" runs the
+            plain versions)
+    faults: an optional serving/faults.FaultInjector
+    """
+
     def __init__(self, m_limbs: int, batch_buckets=(64, 256, 1024),
-                 device="cuda"):
+                 device="cuda", impl: str | None = None, faults=None):
         self.m = m_limbs
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("BigintDivisionService(device='cuda') needs "
                                "a CUDA device; pass device='cpu' to run "
                                "the plain versions on the CPU")
+        self.impl = impl
+        K.check_impl(impl)
         self.batcher = BT.Batcher(batch_buckets)
         self.telemetry = BT.ServiceMetrics()
+        self._plans = BT.PlanCache()
+        self.kernel_plans = self._plans.current     # bucket -> KernelPlan
+        self.faults = faults
 
     @property
     def buckets(self):
         return list(self.batcher.buckets)
 
-    def validate(self, op: str, columns) -> int:
+    def set_fault_injector(self, faults) -> None:
+        """Install (or clear, with None) a fault injector."""
+        self.faults = faults
+
+    def _fire(self, site: str, **labels) -> None:
+        if self.faults is not None:
+            self.faults.fire(site, **labels)
+
+    def validate(self, op: str, columns, v=None) -> int:
         """Full request validation (types, ranges, column lengths);
         returns the request length."""
         if op != "divmod":
@@ -45,27 +77,56 @@ class BigintDivisionService:
         E.check_operands("v", columns[1], lim, f"B^{self.m}")
         return n
 
-    def divide(self, us: list[int], vs: list[int]):
+    def divide(self, us: list[int], vs: list[int], *,
+               impl: str | None = None):
         """Exact (q, r) lists for batched u / v; v = 0 gives the total
-        extension (q, r) = (0, u)."""
+        extension (q, r) = (0, u).  `impl` overrides the service's impl
+        for this call (the frontend's degradation ladder); every impl
+        gives the same bits."""
         n = self.validate("divmod", (us, vs))
         if n == 0:
             return [], []
+        eff = K.check_impl(impl or self.impl)
         self.telemetry.record_request("divmod", n)
         qs, rs = [], []
         for lo, hi, bucket in self.batcher.plan(n):
+            self._fire("transfer", op="divmod", bucket=bucket)
             u = bi.limbs_from_numpy(bi.batch_from_ints(
                 BT.pad_ints(us[lo:hi], bucket, 0), self.m), self.device)
             v = bi.limbs_from_numpy(bi.batch_from_ints(
                 BT.pad_ints(vs[lo:hi], bucket, 1), self.m), self.device)
+            plan = self._plans.use(
+                "divmod", bucket, eff, K.check_impl(self.impl),
+                partial(self._fire, "compile"))
             self.telemetry.record_rows(bucket, hi - lo)
-            with self.telemetry.chunk_timer("divmod", bucket):
-                q, r = S.divmod_batch(u, v)
+            with T.annotate(f"bigint_service/divmod/b{bucket}"), \
+                    self.telemetry.chunk_timer("divmod", bucket):
+                self._fire("execute", op="divmod", bucket=bucket, impl=eff)
+                q, r = S.divmod_batch(u, v, impl=plan.impl)
                 q, r = bi.limbs_to_numpy(q), bi.limbs_to_numpy(r)
             keep = hi - lo
             qs += bi.batch_to_ints(q[:keep])
             rs += bi.batch_to_ints(r[:keep])
         return qs, rs
 
+    # -- introspection ----------------------------------------------------
+
     def stats(self) -> dict:
-        return self.telemetry.stats()
+        """Runtime counters; `bucket_compiles` counts the (op, bucket,
+        impl) plans built, `bucket_reuses` the later uses."""
+        out = self.telemetry.stats()
+        out["bucket_compiles"] = self._plans.misses
+        out["bucket_reuses"] = self._plans.hits
+        return out
+
+    def snapshot(self) -> dict:
+        """Per-bucket KernelPlans beside the runtime counters."""
+        return {
+            "service": "bigint_division",
+            "m_limbs": self.m,
+            "impl": K.check_impl(self.impl),
+            "iters": S.refine_iters(self.m),
+            "buckets": {b: {"plan": p._asdict()}
+                        for b, p in sorted(self.kernel_plans.items())},
+            "runtime": self.stats(),
+        }

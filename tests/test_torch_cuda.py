@@ -203,3 +203,111 @@ def test_modulus_past_shared_memory_raises(dev):
         MA.barrett_precompute(torch.ones(16384, dtype=torch.int32,
                                          device=dev))
     assert build.launch_counts() == {}
+
+
+# shapes of the pair kernel: ragged tiles, one operand shorter than a
+# tile, a pruned product, and the 2^15-bit divmod's q*v (2048 limbs)
+@pytest.mark.parametrize("wu,wv,wo", [(130, 130, 63), (130, 130, 128),
+                                      (130, 130, 129), (300, 7, 400),
+                                      (257, 385, 642), (2048, 2048, 2048)])
+def test_pairs_kernel_matches_plain(dev, wu, wv, wo):
+    from repro_torch.kernels import bigmul
+    rnd = random.Random(wu + wv + wo)
+    xs = [rnd.randint(0, B ** wu - 1) for _ in range(3)] + [B ** wu - 1, 0]
+    ys = [rnd.randint(0, B ** wv - 1) for _ in range(3)] + [B ** wv - 1, 5]
+    u, v = _t(xs, wu, dev), _t(ys, wv, dev)
+    build.build_all()
+    build.reset_launch_counts()
+    got = bigmul.mul_pairs(u, v, wo)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {"mul_pairs": 1}
+    assert torch.equal(got, bigmul.mul_pairs_reference(u, v, wo))
+    assert torch.equal(got, K.mul_plain(u, v, wo))
+    for x, y, row in zip(xs, ys, bi.batch_to_ints(got)):
+        assert row == (x * y) % B ** wo
+    raw = bigmul.pair_sums_cuda(u, v, K.tiles_for(wo))
+    torch.cuda.synchronize()
+    assert torch.equal(raw, K.pair_sums_plain(u, v, K.tiles_for(wo)))
+
+
+@pytest.mark.parametrize("l_max", [1, 63, 64, 65, 127, 128, 129, 255, 256,
+                                   257, 300])
+def test_mulmod_pairs_kernel_matches_plain(dev, l_max):
+    from repro_torch.kernels import bigmul
+    rnd = random.Random(l_max)
+    wu, wv = 3 * 128 + 5, 2 * 128 + 3
+    xs = [rnd.randint(0, B ** wu - 1) for _ in range(3)] + [B ** wu - 1]
+    ys = [rnd.randint(0, B ** wv - 1) for _ in range(3)] + [B ** wv - 1]
+    u, v = _t(xs, wu, dev), _t(ys, wv, dev)
+    got = bigmul.mulmod_pairs(u, v, l_max, wu + 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bigmul.mulmod_pairs_reference(u, v, l_max,
+                                                          wu + 2))
+    assert bi.batch_to_ints(got) == [(x * y) % B ** l_max
+                                     for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("impl", ["cuda_batched", "cuda_pairs", "blocked"])
+def test_impls_on_card_exact_with_launch_counts(dev, impl):
+    """divmod, precompute, reduce and a short modexp under each unfused
+    impl: the same bits as cuda_fused, and the launches the cost model
+    counts for the impl."""
+    from repro_torch.core import modarith as MA
+    name = {"cuda_batched": "mul_batch", "cuda_pairs": "mul_pairs",
+            "blocked": None}[impl]
+    m = 130
+    rnd = random.Random(m)
+    us = [rnd.randint(0, B ** m - 1) for _ in range(8)]
+    vs = [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(8)]
+    vs[1] = 0
+    u, v = _t(us, m, dev), _t(vs, m, dev)
+    build.build_all()
+
+    def counted(fn, op, **kw):
+        build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        want = CM.model_launches(op, m, impl, **kw)
+        assert build.launch_counts() == ({name: want} if want else {})
+        return out
+
+    q, r = counted(lambda: S.divmod_batch(u, v, impl=impl), "divmod")
+    q0, r0 = S.divmod_batch(u, v)
+    assert torch.equal(q, q0) and torch.equal(r, r0)
+    mod = rnd.randint(B ** (m - 1), B ** m - 1)
+    ctx = counted(lambda: MA.barrett_precompute(_t([mod], m, dev)[0], impl),
+                  "precompute")
+    assert torch.equal(ctx.mu, MA.barrett_precompute(_t([mod], m, dev)[0]).mu)
+    xs = [rnd.randint(0, B ** (2 * m) - 1) for _ in range(4)]
+    got = counted(lambda: MA.reduce_shared(ctx, _t(xs, 2 * m, dev), impl),
+                  "reduce")
+    assert bi.batch_to_ints(got) == [x % mod for x in xs]
+    a = [x % B ** m for x in xs]
+    got = counted(lambda: MA.modexp_shared(ctx, _t(a, m, dev),
+                                           _t([3, 0, 1, 65535], 1, dev),
+                                           impl=impl), "modexp", e_bits=16)
+    assert bi.batch_to_ints(got) == [pow(x, y, mod) for x, y in
+                                     zip(a, [3, 0, 1, 65535])]
+
+
+def test_2p18_modulus_runs_under_cuda_pairs(dev):
+    """A 2^18-bit modulus: cuda_batched raises before any launch, as
+    cuda_fused does; cuda_pairs, whose kernel stages two tiles whatever
+    the width, precomputes and reduces exactly."""
+    from repro_torch.core import modarith as MA
+    m = 16384
+    rnd = random.Random(18)
+    mod = rnd.randint(B ** (m - 1), B ** m - 1)
+    build.build_all()
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        MA.barrett_precompute(_t([mod], m, dev)[0], "cuda_batched")
+    assert build.launch_counts() == {}
+    ctx = MA.barrett_precompute(_t([mod], m, dev)[0], "cuda_pairs")
+    xs = [B ** (2 * m) - 1, rnd.randint(0, B ** (2 * m) - 1)]
+    got = MA.reduce_shared(ctx, _t(xs, 2 * m, dev), "cuda_pairs")
+    torch.cuda.synchronize()
+    assert bi.batch_to_ints(got) == [x % mod for x in xs]
+    assert build.launch_counts() == {
+        "mul_pairs": CM.precompute_launches(m, "cuda_pairs")
+        + CM.barrett_launches("cuda_pairs")}

@@ -1,0 +1,280 @@
+"""The port's impl registry (`repro_torch.kernels.ops`): the ladder
+against the JAX package's, every entry point under each of the four
+impls against the JAX package's `impl="blocked"` and `impl="pallas"`
+(the single-instance Pallas kernel in interpret mode, as
+tests/test_kernels.py runs it at m <= 16), and the launch counts of the
+port's cost model against `repro/obs/costmodel.py` with the impl names
+mapped (`ops.JAX_IMPLS`).
+
+On the CPU every impl runs its composition with the plain versions of
+its kernels; the products it would launch on the card are counted here
+by wrapping the impl's product.  JAX compiles each program once per
+module (about 15-25 s each).  Tolerance: exact equality.
+"""
+
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bigint as JB
+from repro.core import modarith as JM
+from repro.core import shinv as JS
+from repro.kernels import ops as JK
+from repro.obs import costmodel as JCM
+from repro_torch.core import bigint as bi
+from repro_torch.core import modarith as MA
+from repro_torch.core import shinv as S
+from repro_torch.kernels import ops as K
+from repro_torch.obs import costmodel as CM
+
+B = bi.BASE
+M_DIV = 8                 # divmod width (the JAX pallas run needs m <= 16)
+M_MOD = 4                 # modulus width
+JAX_IMPLS = ("blocked", "pallas")
+
+
+def _t(xs, w):
+    return bi.limbs_from_numpy(JB.batch_from_ints(xs, w), "cpu")
+
+
+def _j(xs, w):
+    return jnp.asarray(JB.batch_from_ints(xs, w))
+
+
+def _div_lanes():
+    rnd = random.Random(8)
+    m = M_DIV
+    us = [rnd.randint(0, B ** m - 1) for _ in range(8)]
+    vs = [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(8)]
+    us[0], vs[0] = B ** m - 1, B ** (m // 2) - 1
+    vs[1], vs[2], vs[3] = B ** (m // 2), 0, 0xFFFF
+    return us, vs
+
+
+def _mod_lanes():
+    rnd = random.Random(4)
+    m = M_MOD
+    v = rnd.randint(B ** (m - 1), B ** m - 1)
+    xs = [rnd.randint(0, B ** (2 * m) - 1) for _ in range(8)]
+    xs[:3] = [B ** (2 * m) - 1, 0, v * rnd.randint(1, B ** m - 1)]
+    a = [rnd.randint(0, B ** m - 1) for _ in range(8)]
+    a[:2] = [B ** m - 1, 0]
+    b = a[::-1]
+    e = [rnd.randint(0, B - 1) for _ in range(8)]
+    e[:3] = [B - 1, 0, 1]
+    return dict(v=v, x=xs, a=a, b=b, e=e)
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """divmod at M_DIV and the shared modular functions at M_MOD, under
+    JAX impl blocked and pallas, as numpy limbs."""
+    us, vs = _div_lanes()
+    L = _mod_lanes()
+    out = {}
+    for impl in JAX_IMPLS:
+        q, r = JS.divmod_batch(_j(us, M_DIV), _j(vs, M_DIV), impl=impl)
+
+        @jax.jit
+        def mod(v, x, a, b, e, impl=impl):
+            ctx = JM.barrett_precompute(v, impl=impl)
+            return dict(mu=ctx.mu,
+                        reduce=JM.reduce_shared(ctx, x, impl=impl),
+                        modmul=JM.modmul_shared(ctx, a, b, impl=impl),
+                        modexp=JM.modexp_shared(ctx, a, e, impl=impl))
+
+        res = mod(jnp.asarray(JB.from_int(L["v"], M_MOD)),
+                  _j(L["x"], 2 * M_MOD), _j(L["a"], M_MOD),
+                  _j(L["b"], M_MOD), _j(L["e"], 1))
+        out[impl] = dict(q=np.asarray(q), r=np.asarray(r),
+                         **{k: np.asarray(a) for k, a in res.items()})
+    return out
+
+
+def _eq(jax_out, torch_out):
+    np.testing.assert_array_equal(np.asarray(jax_out).astype(np.int64),
+                                  torch_out.numpy().astype(np.int64))
+
+
+class _Counted:
+    """Wraps impl's product in the registry and counts its calls: on the
+    card each is one kernel launch of the impl's product kernel."""
+
+    def __init__(self, monkeypatch, impl):
+        self.n = 0
+        orig = K._PRODUCTS[impl]
+
+        def counted(u, v, out_width):
+            self.n += 1
+            return orig(u, v, out_width)
+        monkeypatch.setitem(K._PRODUCTS, impl, counted)
+
+    def take(self):
+        n, self.n = self.n, 0
+        return n
+
+
+# ---------------------------------------------------------------------------
+# the ladder
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_fallback_chain_matches_jax(impl):
+    chain = K.fallback_chain(impl)
+    assert chain == {"cuda_fused": ["cuda_fused", "cuda_batched", "blocked"],
+                     "cuda_batched": ["cuda_batched", "blocked"],
+                     "cuda_pairs": ["cuda_pairs", "blocked"],
+                     "blocked": ["blocked"]}[impl]
+    assert [K.JAX_IMPLS[i] for i in chain] == \
+        JK.fallback_chain(K.JAX_IMPLS[impl])
+    nxt = K.fallback_impl(impl)
+    assert (nxt and K.JAX_IMPLS[nxt]) == JK.fallback_impl(K.JAX_IMPLS[impl])
+
+
+def test_registry_names_and_default():
+    assert set(K.JAX_IMPLS) == set(K.IMPLS)
+    assert set(K.JAX_IMPLS.values()) <= set(JK.IMPLS)
+    assert K.default_impl() == "cuda_fused"
+    assert K.check_impl(None) == "cuda_fused"
+    for bad in ("scan", "pallas", "warp_speed"):
+        with pytest.raises(ValueError):
+            K.fallback_impl(bad)
+    assert K.check_impl("blocked") == "blocked"
+
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_fallback_chain_on_the_card_ends_at_a_kernel(impl):
+    """On the card the ladder stops at the last kernel rung: blocked
+    (the plain versions) runs there only when it is asked for."""
+    chain = {"cuda_fused": ["cuda_fused", "cuda_batched"],
+             "cuda_batched": ["cuda_batched"],
+             "cuda_pairs": ["cuda_pairs"],
+             "blocked": ["blocked"]}[impl]
+    assert K.fallback_chain(impl, "cuda") == chain
+    assert K.fallback_chain(impl, torch.device("cuda", 0)) == chain
+    assert K.fallback_chain(impl, "cpu") == K.fallback_chain(impl)
+
+
+# ---------------------------------------------------------------------------
+# every entry point under every impl, against JAX blocked and pallas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_divmod_under_each_impl_matches_jax(jax_runs, monkeypatch, impl):
+    us, vs = _div_lanes()
+    prods = _Counted(monkeypatch, impl)
+    q, r = S.divmod_batch(_t(us, M_DIV), _t(vs, M_DIV), impl=impl)
+    for j in JAX_IMPLS:
+        _eq(jax_runs[j]["q"], q)
+        _eq(jax_runs[j]["r"], r)
+    for x, y, qq, rr in zip(us, vs, bi.batch_to_ints(q),
+                            bi.batch_to_ints(r)):
+        assert (qq, rr) == (divmod(x, y) if y else (0, x))
+    if impl in ("cuda_pairs", "cuda_batched"):
+        assert prods.take() == CM.divmod_launches(M_DIV, impl)
+
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_modarith_under_each_impl_matches_jax(jax_runs, monkeypatch, impl):
+    L = _mod_lanes()
+    m, v = M_MOD, L["v"]
+    prods = _Counted(monkeypatch, impl)
+    ctx = MA.barrett_precompute(_t([v], m)[0], impl)
+    unfused = impl in ("cuda_pairs", "cuda_batched")
+    if unfused:
+        assert prods.take() == CM.precompute_launches(m, impl)
+    x, a, b = _t(L["x"], 2 * m), _t(L["a"], m), _t(L["b"], m)
+    got = dict(mu=ctx.mu[None],
+               reduce=MA.reduce_shared(ctx, x, impl),
+               modmul=MA.modmul_shared(ctx, a, b, impl),
+               modexp=MA.modexp_shared(ctx, a, _t(L["e"], 1), impl=impl))
+    if unfused:
+        assert prods.take() == sum(CM.model_launches(op, m, impl, e_bits=16)
+                                   for op in ("reduce", "modmul", "modexp"))
+    for j in JAX_IMPLS:
+        for k, t in got.items():
+            _eq(jax_runs[j][k].reshape(t.shape), t)
+    assert bi.batch_to_ints(got["modexp"]) == [
+        pow(aa, ee, v) for aa, ee in zip(L["a"], L["e"])]
+    # the per-lane entry point, against Python
+    vs = [v, 1, 0xFFFF, B ** (m - 1)] * 2
+    per = MA.modmul_batch(a, b, _t(vs, m), impl)
+    assert bi.batch_to_ints(per) == [aa * bb % vv for aa, bb, vv in
+                                     zip(L["a"], L["b"], vs)]
+
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_products_under_each_impl(impl):
+    rnd = random.Random(5)
+    xs = [rnd.randint(0, B ** 300 - 1) for _ in range(3)] + [B ** 300 - 1]
+    ys = [rnd.randint(0, B ** 200 - 1) for _ in range(3)] + [B ** 200 - 1]
+    u, v = _t(xs, 300), _t(ys, 200)
+    for wo in (1, 128, 129, 500):
+        got = K.mul_batch(u, v, wo, impl)
+        assert bi.batch_to_ints(got) == [x * y % B ** wo
+                                         for x, y in zip(xs, ys)]
+        assert torch.equal(K.mul(u[0], v[0], wo, impl), got[0])
+        L = torch.tensor([0, 1, wo // 2, wo], dtype=torch.int32)
+        assert bi.batch_to_ints(K.mulmod(u, v, L, wo, impl)) == [
+            x * y % B ** int(ll) for x, y, ll in zip(xs, ys, L)]
+
+
+def test_width_cap_dispatch():
+    """On the card cuda_fused and cuda_batched stage the 2W-limb Barrett
+    window in shared memory, so a 2^18-bit modulus (16384 limbs) raises
+    before any launch; cuda_pairs and blocked, and every impl on the
+    CPU, take it.  Nothing reroutes on its own."""
+    cuda = torch.device("cuda")
+    for impl in ("cuda_fused", "cuda_batched"):
+        MA.check_width(cuda, 8192, impl)          # 2^17 bits fit
+        with pytest.raises(ValueError, match="shared memory"):
+            MA.check_width(cuda, 16384, impl)
+    for impl in ("cuda_pairs", "blocked"):
+        MA.check_width(cuda, 16384, impl)
+    for impl in K.IMPLS:
+        MA.check_width("cpu", 16384, impl)
+    with pytest.raises(ValueError, match="shared memory"):
+        MA.check_width(cuda, 16384)               # the default, cuda_fused
+
+
+# ---------------------------------------------------------------------------
+# cost model per impl
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_costmodel_per_impl_matches_jax(impl):
+    j = K.JAX_IMPLS[impl]
+    assert CM.step_launches(impl) == JCM.step_launches(j)
+    assert CM.step_glue_ops(impl) == JCM.step_glue_ops(j)
+    assert CM.mul_launches(impl) == JCM.mul_launches(j)
+    assert CM.barrett_launches(impl) == JCM.barrett_launches(j)
+    assert CM.modmul_launches(impl) == JCM.modmul_launches(j)
+    for m in (4, 26, 2048, 16384):
+        assert CM.divmod_launches(m, impl) == JCM.divmod_launches(m, j)
+        for op in ("divmod", "reduce", "modmul"):
+            assert CM.model_launches(op, m, impl) == \
+                JCM.model_launches(op, m, j)
+    for e_bits, w in ((16, 4), (256, 4), (64, 2)):
+        assert CM.modexp_launches(e_bits, w, impl) == \
+            JCM.modexp_launches(e_bits, w, impl=j)
+        assert CM.model_launches("modexp", 4, impl, e_bits=e_bits,
+                                 window_bits=w) == \
+            CM.modexp_launches(e_bits, w, impl)
+    assert CM.model_launches("modexp", 4, impl) is None
+    assert CM.model_launches("precompute", 2048, impl) == \
+        CM.step_launches(impl) * CM.precompute_iters(2048)
+
+
+def test_costmodel_fused_counts_unchanged():
+    assert [CM.divmod_launches(m) for m in (2048, 4096, 8192, 16384)] == \
+        [27, 29, 31, 33]
+    assert [CM.precompute_launches(m) for m in (2048, 4096, 8192)] == \
+        [30, 32, 34]
+    assert (CM.barrett_launches(), CM.modmul_launches(),
+            CM.modexp_launches(256)) == (1, 2, 674)
+    assert (CM.divmod_launches(2048, "cuda_pairs"),
+            CM.modexp_launches(256, impl="cuda_pairs")) == (28, 3 * 336 + 4)
