@@ -51,12 +51,15 @@ Phases, each of which raises on failure:
      quarantine set and the plans' degraded_from as planned, nothing
      dropped;
   6. timing with CUDA events (median of 5 after a warm-up): each kernel
-     at each window it runs at, divmod_batch per precision; per modulus
-     size the precompute, reductions/s, modmuls/s, modexp (256-bit
-     exponents) and exponentiations/s, the device's busy share, and the
-     Barrett kernel's device time per launch against its bound; mul_pairs
-     beside mul_batch at the q*v shapes of the 2^15 x 256 and 2^18 x 32
-     cells.
+     at each window it runs at, divmod_batch per precision (under
+     cuda_fused and cuda_batched, with busy shares); per modulus size the
+     precompute, reductions/s, modmuls/s, modexp (256-bit exponents) and
+     exponentiations/s, the device's busy share, and the Barrett kernel
+     (at the reduce and the 64-lane modexp shapes) and mul_batch (at
+     modmul's a*b shape) per launch against their bounds, with the
+     cluster size each used and its limb products per second per SM;
+     mul_pairs beside mul_batch at the q*v shapes of the 2^15 x 256 and
+     2^18 x 32 cells.  ptxas registers and spills go to the report.
 
 The kernel launch counters are set to 0 just before each of phases 4,
 5, 5b, 5c and 5d and read just after it.  Details go to
@@ -212,6 +215,28 @@ def pow_all(triples) -> list[int]:
     return host_map(_pow, triples)
 
 
+def ptxas_report(path: Path) -> dict:
+    """Registers and spill bytes of each kernel from nvcc's -Xptxas -v
+    output, by kernel name."""
+    import re
+    out, name = {}, None
+    text = path.read_text() if path.exists() else ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for _Z\d+(\w+?_kernel)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -230,7 +255,7 @@ def main() -> int:
 class Smoke:
     def __init__(self, torch, build):
         from repro_torch.core import arith, bigint, modarith, shinv
-        from repro_torch.kernels import bigmul, fused, ops
+        from repro_torch.kernels import bigmul, digitmma, fused, ops
         from repro_torch.obs import costmodel
         from repro_torch.serving import errors, faults, frontend, policy
         from repro_torch.serving.bigint_service import BigintDivisionService
@@ -240,6 +265,8 @@ class Smoke:
         self.torch, self.build = torch, build
         self.A, self.bi, self.S, self.MA = arith, bigint, shinv, modarith
         self.F, self.K, self.CM, self.bigmul = fused, ops, costmodel, bigmul
+        self.D = digitmma
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.Service, self.ModService = BigintDivisionService, ModArithService
         self.dev = torch.device("cuda", 0)
         self.err = {k: 0 for k in KERNELS}     # max |kernel - plain|
@@ -288,6 +315,9 @@ class Smoke:
         self.build.build_all()
         log(f"build: {self.build.build_seconds:.1f} s "
             f"({time.perf_counter() - t0:.1f} s with loading)")
+        self.report["ptxas"] = ptxas_report(self.build.BUILD_DIR /
+                                            "ptxas.log")
+        log(f"ptxas: {json.dumps(self.report['ptxas'])}")
         self.phase("kernels_vs_plain", self.check_kernels)
         self.phase("barrett_vs_plain", self.check_barrett)
         self.phase("pairs_vs_plain", self.check_pairs)
@@ -564,7 +594,8 @@ class Smoke:
                     row[f"{name}_plain_ms"] = self.time_ms(plain)
                     a = agg.setdefault(name, dict(
                         event_ms=0.0, device_ms=0.0 if dev else None,
-                        plain_ms=0.0, products=0, bytes=0))
+                        plain_ms=0.0, products=0, bytes=0, launches=0))
+                    a["launches"] += 1
                     a["event_ms"] += row[f"{name}_ms"]
                     if dev:
                         a["device_ms"] += row[f"{name}_device_ms"]
@@ -577,11 +608,33 @@ class Smoke:
                     row.update(divmod_ms=dm,
                                divisions_per_s=batch / (dm / 1e3))
                     row.update(self.device_share(
-                        lambda: S.divmod_batch(u, v), dm))
+                        lambda: S.divmod_batch(u, v)))
+                    # the same division on the product kernel alone
+                    fn = lambda: S.divmod_batch(u, v, impl="cuda_batched")
+                    dmb = self.time_ms(fn, runs=3)
+                    sh = self.device_share(fn)
+                    row.update(divmod_cuda_batched_ms=dmb,
+                               divmod_cuda_batched_device_ms=sh["device_ms"],
+                               divmod_cuda_batched_busy_share=sh[
+                                   "device_busy_share"])
+                    K.mul_batch(q, v, m)
+                    row["mul_batch_cluster"] = self.D.last_cluster[
+                        "mul_batch"]
+                    row["mul_batch_rate_per_sm"] = self.rate(
+                        batch * m * (m + 1) // 2,
+                        row["mul_batch_device_ms"])
+                    if first:
+                        agg["mul_batch"]["cluster"] = row["mul_batch_cluster"]
                 rows.append(row)
                 log(json.dumps(row))
         self.report["timing"] = rows
         self.agg = agg
+
+    def rate(self, products, device_ms):
+        """Limb products per second per SM over a kernel's device time."""
+        if not device_ms:
+            return None
+        return products / (device_ms / 1e3) / self.sms
 
     def burst_ms(self, fn, n=20):
         """Time of one call from CUDA events around n back-to-back calls
@@ -598,47 +651,67 @@ class Smoke:
         b.synchronize()
         return a.elapsed_time(b) / n
 
+    def profiler_warmup(self):
+        """A short spin kernel (torch.cuda._sleep, `spin_kernel`) first in
+        every profile: the profiler may drop a session's first device
+        event, and this one is never counted."""
+        self.torch.cuda._sleep(10000)
+        self.torch.cuda.synchronize()
+
     def device_us(self, calls):
         """Device time (us) of each port kernel the calls launch, in
         launch order (torch.profiler); None where the profiler reports
         a different number of kernels than there are calls."""
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for fn in calls:
-                fn()
-            self.torch.cuda.synchronize()
-        evs = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and e.name.split("(")[0].endswith("_kernel")
-               and e.name.split("(")[0][:-len("_kernel")] in KERNELS]
-        evs.sort(key=lambda e: e.time_range.start)
-        if len(evs) != len(calls):
+        for _ in range(2):                  # once more if events were lost
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                self.profiler_warmup()
+                for fn in calls:
+                    fn()
+                self.torch.cuda.synchronize()
+            evs = [e for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.name.split("(")[0].endswith("_kernel")
+                   and e.name.split("(")[0][:-len("_kernel")] in KERNELS]
+            evs.sort(key=lambda e: e.time_range.start)
+            if len(evs) == len(calls):
+                return [e.time_range.elapsed_us() for e in evs]
             log(f"profiler saw {len(evs)} kernels for {len(calls)} calls: "
                 f"{[e.name.split('(')[0] for e in evs]}")
-            return None
-        return [e.time_range.elapsed_us() for e in evs]
+        return None
 
-    def device_share(self, fn, wall_ms):
+    def device_share(self, fn):
         """Device time of one call by kernel name (torch.profiler), and
-        the device's busy share of the unprofiled call's time `wall_ms`.
-        None where the profiler reports no device time."""
+        the device's busy share of that same profiled call's wall time
+        (host clock from the call to its synchronize; the profiler's
+        host cost makes the share a lower bound, never above 1).  None
+        where the profiler reports no device time."""
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            self.torch.cuda.synchronize()
         per = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0) or 0
-            if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-                name = e.key.split("(")[0]
-                per[name] = dict(us=us, count=e.count)
+        for _ in range(2):                  # once more if events were lost
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                self.profiler_warmup()
+                t0 = time.perf_counter()
+                fn()
+                self.torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", 0) or 0
+                if (us > 0
+                        and str(getattr(e, "device_type", "")).endswith("CUDA")
+                        and "spin_kernel" not in e.key):
+                    name = e.key.split("(")[0]
+                    per[name] = dict(us=us, count=e.count)
+            if per:
+                break
         total = sum(d["us"] for d in per.values()) / 1e3
         ours = {k: per[k] for k in per if k.endswith("_kernel")
                 and k.split("_kernel")[0] in KERNELS}
         return dict(device_ms=total if per else None,
                     device_busy_share=total / wall_ms if per else None,
+                    profiled_wall_ms=wall_ms,
                     device_by_kernel=ours, device_other_ms=(
                         total - sum(d["us"] for d in ours.values()) / 1e3)
                     if per else None)
@@ -899,24 +972,51 @@ class Smoke:
             mi = self.mod_inputs[bits]
             ctx, x = mi["ctx"], mi["x"]
             h = MA.barrett_h(m)
+            a, b = mi["a"], mi["b"]
+            # the reduce launch, the one of a 64-lane modexp, and
+            # modmul's a*b product (m x m -> 2m limbs)
             kern = lambda: F.barrett_cuda(x, ctx.mu, ctx.v, h=h)
-            dev = self.device_us([kern])
+            kern64 = lambda: F.barrett_cuda(x[:64], ctx.mu, ctx.v, h=h)
+            prod = lambda: self.bigmul.mul_batch_cuda(a, b, 2 * m)
+            dev = self.device_us([kern, kern64, prod])
+            dms = [d / 1e3 for d in dev] if dev else [None] * 3
             work = self.barrett_work(mi["L"], ctx, m, batch)
+            work64 = self.barrett_work(mi["L"], ctx, m, 64)
+            work_ab = (batch * m * m, 4 * batch * 4 * m)
             row = dict(modulus_bits=bits, lanes=batch,
                        barrett_ms=self.time_ms(kern),
-                       barrett_device_ms=dev[0] / 1e3 if dev else None)
+                       barrett_device_ms=dms[0] if dev else None)
+            row["barrett_cluster"] = self.D.last_cluster["barrett"]
             row["barrett_bound_ms"], row["barrett_bound_by"] = \
                 self.bound(*work)
             row["barrett_products"], row["barrett_bytes"] = work
+            # CUDA events around 20 back-to-back launches: the device
+            # time where the profiler lost a kernel's events
+            bursts = [self.burst_ms(fn) for fn in (kern, kern64, prod)]
+            dms = [d if d is not None else b for d, b in zip(dms, bursts)]
+            row["burst_ms"] = dict(zip(("barrett", "barrett_64", "mul_ab"),
+                                       bursts))
+            row["barrett_rate_per_sm"] = self.rate(work[0], dms[0])
+            row["barrett_64_ms"] = self.time_ms(kern64)
+            row["barrett_64_device_ms"] = dms[1] if dev else None
+            row["barrett_64_cluster"] = self.D.last_cluster["barrett"]
+            row["barrett_64_bound_ms"] = self.bound(*work64)[0]
+            row["barrett_64_rate_per_sm"] = self.rate(work64[0], dms[1])
+            row["mul_ab_ms"] = self.time_ms(prod)
+            row["mul_ab_device_ms"] = dms[2] if dev else None
+            row["mul_ab_cluster"] = self.D.last_cluster["mul_batch"]
+            row["mul_ab_bound_ms"] = self.bound(*work_ab)[0]
+            row["mul_ab_rate_per_sm"] = self.rate(work_ab[0], dms[2])
             if bits == MODULI[0][0]:
                 row["barrett_plain_ms"] = self.time_ms(
                     lambda: F.barrett_reference(x, ctx.mu, ctx.v, h=h))
                 self.agg["barrett"] = dict(
-                    event_ms=row["barrett_ms"],
-                    device_ms=row["barrett_device_ms"],
+                    event_ms=row["barrett_ms"], device_ms=dms[0],
+                    ms_source="profiler" if dev else
+                    "cuda_events over 20 back-to-back launches",
                     plain_ms=row["barrett_plain_ms"], products=work[0],
                     bytes=work[1], shape=f"one reduce_shared, 2^15-bit "
-                    f"modulus, {batch} lanes")
+                    f"modulus, {batch} lanes", cluster=row["barrett_cluster"])
             rows.append(row)
         for row, (bits, batch) in zip(rows, MODULI):
             mi = self.mod_inputs[bits]
@@ -930,7 +1030,7 @@ class Smoke:
             for name, fn in calls.items():
                 runs = 3 if name == "modexp" and bits != MODULI[0][0] else 5
                 ms = self.time_ms(fn, runs=runs)
-                share = self.device_share(fn, ms)
+                share = self.device_share(fn)
                 row[f"{name}_ms"] = ms
                 row[f"{name}_device_ms"] = share["device_ms"]
                 row[f"{name}_busy_share"] = share["device_busy_share"]
@@ -1277,8 +1377,7 @@ class Smoke:
                        mul_pairs_plain_ms=self.time_ms(
                            lambda: bm.mul_pairs_reference(q, v, m), runs=3),
                        products=work[0], bytes=work[1])
-            share = self.device_share(lambda: bm.mul_pairs(q, v, m),
-                                      row["mul_pairs_ms"])
+            share = self.device_share(lambda: bm.mul_pairs(q, v, m))
             row.update(mul_pairs_call_device_ms=share["device_ms"],
                        mul_pairs_call_busy_share=share["device_busy_share"])
             # the whole division under each kernel impl, in turns
@@ -1338,6 +1437,11 @@ class Smoke:
                                      else "cuda_events"),
                      shape=a.get("shape",
                                  "one divmod_batch, 2^15 bits, batch 256"))
+            n = a.get("launches", 1)
+            e["ms_per_launch"] = e["ms"] / n
+            e["bound_per_launch"] = bms / n
+            if "cluster" in a:           # the cluster size this run used
+                e["cluster"] = a["cluster"]
             if name in GRID_TWINS:
                 e["also_replaces"] = GRID_TWINS[name]
             for extra in ("at_2p18", "call_device_ms"):

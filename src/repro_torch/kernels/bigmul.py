@@ -1,9 +1,11 @@
 """Wrappers of the two standalone product kernels.
 
 `mul_batch_cuda` (csrc/mul.cu) replaces
-`repro/kernels/bigmul.py:mul_pallas_batched`: one thread block per
-instance, exact (u * v) mod B^out_width from 64-bit column sums;
-`kernels/ops.py:mul_plain` is its plain version.
+`repro/kernels/bigmul.py:mul_pallas_batched`: exact (u * v) mod
+B^out_width as an 8-bit digit GEMM on the int8 tensor cores, an
+instance spread over a thread-block cluster below 132 lanes
+(`kernels/digitmma.py`); `kernels/ops.py:mul_plain` is its plain
+version.
 
 `mul_pairs` and `mulmod_pairs` (csrc/pairs.cu) replace `mul_pallas` and
 `mulmod_pallas`, whose `_mul_kernel` summed tile pairs per output
@@ -16,17 +18,20 @@ sums with `ops.pair_sums_plain`.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import arith as A
-from . import build, ops
-from .build import SMEM_BYTES, check_limbs, stream_ptr
+from . import build, digitmma as D, ops
+from .build import check_limbs, stream_ptr
 
 
 def mul_batch_cuda(u: torch.Tensor, v: torch.Tensor,
                    out_width: int) -> torch.Tensor:
     """(batch, Wu) x (batch, Wv) int32 limbs on the card -> (batch,
-    out_width): one kernel launch."""
+    out_width): one kernel launch, on clusters of
+    `digitmma.cluster_size(batch, sms)` blocks per instance."""
     if u.ndim != 2 or v.ndim != 2 or u.shape[0] != v.shape[0]:
         raise ValueError(f"expected (batch, W) operands with equal batch, "
                          f"got {tuple(u.shape)} x {tuple(v.shape)}")
@@ -35,19 +40,22 @@ def mul_batch_cuda(u: torch.Tensor, v: torch.Tensor,
     check_limbs("v", v)
     batch, wu = u.shape
     wv = v.shape[1]
-    if 4 * (min(wu, out_width) + min(wv, out_width)) > SMEM_BYTES:
-        raise ValueError("operands too wide for the shared-memory product")
+    D.check_contract(min(wu, out_width), min(wv, out_width))
     lib = build.lib("mul")
+    if lib.mul_batch_smem_bytes(wu, wv, out_width) > D.DYNAMIC_SMEM_BYTES:
+        raise ValueError("operands too wide for the shared-memory product")
     out = torch.empty(batch, out_width, dtype=torch.int32, device=u.device)
     if batch == 0:
         return out
     scratch = torch.empty(batch * lib.mul_batch_scratch_bytes(out_width),
                           dtype=torch.uint8, device=u.device)
+    cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(u.device)))
     err = lib.mul_batch_launch(u.data_ptr(), v.data_ptr(), out.data_ptr(),
                                scratch.data_ptr(), batch, wu, wv, out_width,
-                               stream_ptr(u))
+                               ctypes.byref(cluster), stream_ptr(u))
     build.check(err, "mul_batch kernel")
     build.count("mul_batch")
+    D.last_cluster["mul_batch"] = cluster.value
     return out
 
 

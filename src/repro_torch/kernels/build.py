@@ -98,15 +98,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     as c_void_p, so ctypes does not cut them to 32 bits)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
-        "mul_batch_launch": [P, P, P, P, I, I, I, I, P],
+        "mul_batch_launch": [P, P, P, P, I, I, I, I, P, P],
         "mul_batch_scratch_bytes": [I],
+        "mul_batch_smem_bytes": [I, I, I],
         "powdiff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
         "update_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
         "step_scratch_bytes": [I],
         "correct_launch": [P, P, P, P, P, P, P, I, I, P],
         "correct_scratch_bytes": [I],
-        "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+        "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P, P],
         "barrett_scratch_bytes": [I],
+        "barrett_smem_bytes": [I, I, I],
         "mul_pairs_launch": [P, P, P, I, I, I, I, P],
         "mul_pairs_tile": [],
     }
@@ -145,8 +147,9 @@ def build_all() -> dict[str, ctypes.CDLL]:
                     p.wait()
                 raise BuildError(f"nvcc failed for {name}.cu:\n{out}")
             os.replace(tmp, so)
-        (BUILD_DIR / "ptxas.log").write_text(
-            "".join(f"== {n}.cu\n{o}" for n, o in logs.items()))
+        if logs:                     # keep the log of the last real build
+            (BUILD_DIR / "ptxas.log").write_text(
+                "".join(f"== {n}.cu\n{o}" for n, o in logs.items()))
         for name in SOURCES:
             so = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
             try:
@@ -169,8 +172,9 @@ def check(err: int, what: str) -> None:
         raise LaunchError(what, err)
 
 
-# Dynamic shared memory a block may use on Hopper; the kernels stage
-# their product operands there as 32-bit words.
+# Dynamic shared memory a block may use on Hopper.  The step, correct
+# and pair kernels stage their product operands there as 32-bit words,
+# the product and Barrett kernels as 16-bit limbs (csrc/digitmma.cuh).
 SMEM_BYTES = 227 * 1024
 
 

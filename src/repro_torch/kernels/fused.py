@@ -23,11 +23,13 @@ impl's product, for every impl but cuda_fused, and the tests and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import arith as A
 from repro_torch.core.bigint import DTYPE, one_hot_pow
-from . import build
+from . import build, digitmma as D
 from .build import SMEM_BYTES, check_limbs, stream_ptr
 from .ops import mul_plain
 
@@ -271,9 +273,10 @@ def correct_cuda(u, v, si, *, h):
 
 
 def barrett_cuda(x, mu, v, *, h: int):
-    """Kernel of `barrett_reference`: r (batch, W) in one launch.  A
-    shared (W,) mu or (<= W,) v is read by every lane through a row
-    stride of 0, never copied per lane."""
+    """Kernel of `barrett_reference`: r (batch, W) in one launch, an
+    instance spread over a cluster of `digitmma.cluster_size(batch,
+    sms)` blocks.  A shared (W,) mu or (<= W,) v is read by every lane
+    through a row stride of 0, never copied per lane."""
     full_w = mu.shape[-1]
     if x.ndim != 2 or x.shape[1] > full_w or v.shape[-1] > full_w:
         raise ValueError(f"expected x (batch, <= {full_w}) and v (<= "
@@ -288,16 +291,22 @@ def barrett_cuda(x, mu, v, *, h: int):
         if a.ndim == 2 and a.shape[0] != batch:
             raise ValueError(f"{name}: {a.shape[0]} rows for {batch} lanes")
         strides[name] = a.shape[-1] if a.ndim == 2 else 0
-    _operands(nx, batch, 2 * full_w, x=x)
+    check_limbs("x", x)
+    D.check_contract(full_w, v.shape[-1])
+    lib = build.lib("barrett")
+    if lib.barrett_smem_bytes(nx, v.shape[-1], full_w) > D.DYNAMIC_SMEM_BYTES:
+        raise ValueError(f"a {full_w}-limb Barrett window exceeds shared "
+                         f"memory")
     r = torch.empty(batch, full_w, dtype=torch.int32, device=x.device)
     if batch:
-        lib = build.lib("barrett")
         scratch = torch.empty(batch * lib.barrett_scratch_bytes(full_w),
                               dtype=torch.uint8, device=x.device)
+        cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(x.device)))
         err = lib.barrett_launch(
             x.data_ptr(), mu.data_ptr(), v.data_ptr(), r.data_ptr(),
             scratch.data_ptr(), batch, nx, strides["mu"], v.shape[-1],
-            strides["v"], full_w, h, stream_ptr(x))
+            strides["v"], full_w, h, ctypes.byref(cluster), stream_ptr(x))
         build.check(err, "barrett kernel")
         build.count("barrett")
+        D.last_cluster["barrett"] = cluster.value
     return r

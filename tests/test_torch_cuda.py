@@ -311,3 +311,144 @@ def test_2p18_modulus_runs_under_cuda_pairs(dev):
     assert build.launch_counts() == {
         "mul_pairs": CM.precompute_launches(m, "cuda_pairs")
         + CM.barrett_launches("cuda_pairs")}
+
+
+# -- the digit-GEMM kernels (csrc/digitmma.cuh): every cluster size --------
+
+def _lanes(batch, w, seed, dev):
+    """numpy-seeded (batch, w) limbs on the card: lane 0 all-0xFFFF,
+    lane 1 zero, lane 2 = 1, the rest random."""
+    a = np.random.default_rng(seed).integers(0, B, (batch, w),
+                                             dtype=np.uint32)
+    a[0] = B - 1
+    if batch > 2:
+        a[1] = 0
+        a[2] = 0
+        a[2, 0] = 1
+    return bi.limbs_from_numpy(a, dev)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 16, 64, 131, 132, 133, 256])
+def test_mul_kernel_every_cluster_size(dev, batch):
+    from repro_torch.kernels import bigmul, digitmma as D
+    for wu, wv, wo in ((300, 300, 600), (700, 129, 700), (2048, 2048, 2048)):
+        u, v = _lanes(batch, wu, wu + batch, dev), _lanes(batch, wv, wv, dev)
+        got = bigmul.mul_batch_cuda(u, v, wo)
+        torch.cuda.synchronize()
+        assert D.last_cluster["mul_batch"] == D.cluster_size(
+            batch, D.device_sms(u.device))
+        assert torch.equal(got, K.mul_plain(u, v, wo))
+    for x, y, z in zip(*(bi.batch_to_ints(t[:3]) for t in (u, v, got))):
+        assert z == x * y % B ** wo
+
+
+@pytest.mark.parametrize("bits,batch", [(2 ** 15, 256), (2 ** 16, 128),
+                                        (2 ** 17, 64), (2 ** 18, 32)])
+def test_mul_kernel_paper_shapes(dev, bits, batch):
+    """q*v of each division cell (m x m -> m) and modmul's full a*b
+    (m x m -> 2m) at each modulus size."""
+    from repro_torch.kernels import bigmul
+    m = bits // 16
+    u, v = _lanes(batch, m, bits, dev), _lanes(batch, m, bits + 1, dev)
+    shapes = (m,) if bits == 2 ** 18 else (m, 2 * m)
+    for wo in shapes:
+        got = bigmul.mul_batch_cuda(u, v, wo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K.mul_plain(u, v, wo))
+        for x, y, z in zip(*(bi.batch_to_ints(t[:3]) for t in (u, v, got))):
+            assert z == x * y % B ** wo
+
+
+@pytest.mark.parametrize("m,batch", [(2048, 256), (4096, 128), (8192, 64),
+                                     (2048, 16), (8192, 5)])
+def test_barrett_kernel_every_cluster_size(dev, m, batch):
+    """The adversarial lanes of _barrett_lanes tiled to `batch` lanes
+    (clusters of 1, 2, 4, 8 and 8), per-lane and shared contexts, each
+    correction branch taken."""
+    from repro_torch.kernels import digitmma as D
+    x, mu, v, h, (xs, vs) = _barrett_lanes(m, dev)
+    reps = -(-batch // x.shape[0])
+    x, mu, v = (t.repeat(reps, 1)[:batch].contiguous() for t in (x, mu, v))
+    got = F.barrett_cuda(x, mu, v, h=h)
+    torch.cuda.synchronize()
+    assert D.last_cluster["barrett"] == D.cluster_size(
+        batch, D.device_sms(x.device))
+    r, over, under = F.barrett_branches(x, mu, v, h=h)
+    assert torch.equal(got, r)
+    if batch >= 9:
+        assert over.any() and under.any()
+    n = len(xs)
+    for i, row in enumerate(bi.batch_to_ints(got)):
+        if i % n != n - 1:                  # the last lane's mu is arbitrary
+            assert row == xs[i % n] % vs[i % n]
+    got = F.barrett_cuda(x, mu[0], v[0], h=h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.barrett_reference(x, mu[0], v[0], h=h))
+    assert bi.batch_to_ints(got) == [xs[i % n] % vs[0] for i in range(batch)]
+
+
+def test_barrett_kernel_2p18_modulus(dev):
+    """W = 32778 (a 2^18-bit modulus) now fits the kernel's staging; mu
+    from the host (the precompute's step kernels still refuse it)."""
+    from repro_torch.core import modarith as MA
+    m = 16384
+    rnd = random.Random(18)
+    W, h = MA.barrett_width(m), MA.barrett_h(m)
+    vs = [rnd.randint(B ** (m - 1), B ** m - 1), B ** m - 1]
+    mus = [B ** h // y for y in vs]
+    xs = [(B ** (2 * m) - 1) // vs[0] * vs[0] - 1, B ** (2 * m) - 1,
+          rnd.randint(0, B ** (2 * m) - 1), vs[1] - 1]
+    lane = [0, 1, 0, 1]
+    x = _t(xs, 2 * m, dev)
+    mu = _t([mus[j] + (i % 2) for i, j in enumerate(lane)], W, dev)
+    v = _t([vs[j] for j in lane], m, dev)
+    got = F.barrett_cuda(x, mu, v, h=h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.barrett_reference(x, mu, v, h=h))
+    assert bi.batch_to_ints(got) == [xx % vs[j] for xx, j in zip(xs, lane)]
+
+
+def test_staging_fits_the_paper_range(dev):
+    """Two bytes per limb: the Barrett kernel stages a 2^18-bit modulus's
+    x, mu and v, and the product kernel modmul's a * b there."""
+    from repro_torch.kernels import digitmma as D
+    from repro_torch.core import modarith as MA
+    libs = build.build_all()
+    mul = libs["mul"].mul_batch_smem_bytes
+    bar = libs["barrett"].barrett_smem_bytes
+    for m in (2048, 4096, 8192, 16384):
+        w = MA.barrett_width(m)
+        assert bar(2 * m, m, w) <= D.DYNAMIC_SMEM_BYTES
+        assert mul(m, m, 2 * m) <= D.DYNAMIC_SMEM_BYTES
+    assert mul(2 * 16394, 16394, 2 * 16394) <= D.DYNAMIC_SMEM_BYTES
+
+
+@pytest.mark.parametrize("m", [2048, 8192])
+def test_modarith_paper_moduli_launch_counts(dev, m):
+    """reduce 1, modmul 2 and a 16-bit-exponent modexp's launches at a
+    2^15- and a 2^17-bit modulus, every lane exact."""
+    from repro_torch.core import modarith as MA
+    rnd = random.Random(m)
+    v = rnd.randint(B ** (m - 1), B ** m - 1)
+    xs = [rnd.randint(0, B ** (2 * m) - 1) for _ in range(4)]
+    a = [x % B ** m for x in xs]
+    build.build_all()
+    ctx = MA.barrett_precompute(_t([v], m, dev)[0])
+    for fn, want, expect in (
+            (lambda: MA.reduce_shared(ctx, _t(xs, 2 * m, dev)),
+             {"barrett": 1}, [x % v for x in xs]),
+            (lambda: MA.modmul_shared(ctx, _t(a, m, dev), _t(a[::-1], m, dev)),
+             {"barrett": 1, "mul_batch": 1},
+             [x * y % v for x, y in zip(a, a[::-1])])):
+        build.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        assert build.launch_counts() == want
+        assert bi.batch_to_ints(got) == expect
+    build.reset_launch_counts()
+    es = [0, 1, 65535, 12345]
+    got = MA.modexp_shared(ctx, _t(a, m, dev), _t(es, 1, dev))
+    lad = CM.modexp_ladder(16)
+    assert build.launch_counts() == {"barrett": lad["reductions"],
+                                     "mul_batch": lad["modmuls"]}
+    assert bi.batch_to_ints(got) == [pow(x, y, v) for x, y in zip(a, es)]

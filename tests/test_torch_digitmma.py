@@ -1,0 +1,142 @@
+"""The digit-GEMM schedule of the port's product and Barrett kernels
+(`repro_torch.kernels.digitmma`) against the JAX package, bit for bit.
+
+`digit_columns_plain` emulates on the CPU what `csrc/digitmma.cuh` runs
+on the card: the same 8-bit digit windows and Toeplitz bands, the same
+k clipping per row tile, the same s32 flushes every `k_chunk` digits and
+the same split of row tiles over a cluster.  Its columns, resolved to
+limbs, must equal the JAX package's `impl="blocked"` product, and the
+Barrett core composed over it must equal JAX `reduce_shared_batch`.
+Operands come from numpy with a fixed seed; tolerance: exact equality.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bigint as JB
+from repro.core import modarith as JM
+from repro.kernels import ops as JK
+from repro_torch.core import bigint as bi
+from repro_torch.core import modarith as MA
+from repro_torch.kernels import digitmma as D
+from repro_torch.kernels import fused as F
+from repro_torch.kernels import ops as K
+
+B = bi.BASE
+
+# (wu, wv, out_width): widths 1-130 limbs; out_width below, at and above
+# the 64-limb row-tile edges; a truncated and a full product
+SHAPES = [(1, 1, 2), (7, 130, 137), (130, 130, 63), (130, 130, 64),
+          (130, 130, 65), (64, 64, 128), (65, 64, 127), (65, 64, 129),
+          (100, 33, 133), (130, 130, 260)]
+# (cluster size, k_chunk, warps): every cluster size, flushes every 32,
+# 64 and 96 digits of k (several flushes at these widths), and one or
+# two warps per block, so that row tiles share B fragments in pairs
+SCHEDULES = [(1, D.K_CHUNK, 16), (2, 32, 16), (4, 96, 16), (8, 64, 16),
+             (1, 32, 1), (2, 64, 2)]
+
+
+def _limbs(seed, batch, w):
+    """numpy-seeded (batch, w) limbs: lane 0 all-0xFFFF, lane 1 zero,
+    lane 2 a short value, the rest random."""
+    a = np.random.default_rng(seed).integers(0, B, (batch, w),
+                                             dtype=np.uint32)
+    a[0] = B - 1
+    a[1] = 0
+    a[2, 1:] = 0
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_product(wu, wv, wo):
+    u, v = _limbs(wu, 5, wu), _limbs(wv + 1000, 5, wv)
+    want = JK.mul_batch_jit(jnp.asarray(u), jnp.asarray(v), wo,
+                            impl="blocked")
+    return u, v, np.asarray(want).astype(np.int64)
+
+
+@pytest.mark.parametrize("cluster,k_chunk,warps", SCHEDULES)
+@pytest.mark.parametrize("wu,wv,wo", SHAPES)
+def test_digit_columns_match_jax_blocked(wu, wv, wo, cluster, k_chunk,
+                                         warps):
+    u, v, want = _jax_product(wu, wv, wo)
+    col = D.digit_columns_plain(bi.limbs_from_numpy(u, "cpu"),
+                                bi.limbs_from_numpy(v, "cpu"), wo,
+                                cluster=cluster, k_chunk=k_chunk,
+                                warps=warps)
+    assert col.shape == (u.shape[0], wo) and col.dtype == torch.int64
+    got = K.resolve_columns(col).numpy().astype(np.int64)
+    np.testing.assert_array_equal(got, want)
+    for x, y, row in zip(u, v, got):
+        assert bi.to_int(row) == bi.to_int(x) * bi.to_int(y) % B ** wo
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reduce(m):
+    rng = np.random.default_rng(m)
+    vint = bi.to_int(rng.integers(0, B, m, dtype=np.uint32)) | 1 << (16 * m - 1)
+    xs = [bi.to_int(r) for r in rng.integers(0, B, (12, 2 * m),
+                                             dtype=np.uint32)]
+    xs[:4] = [B ** (2 * m) - 1, 0, vint - 1, vint * (B ** m - 1)]
+    ctx = JM.barrett_precompute(jnp.asarray(JB.from_int(vint, m)),
+                                impl="blocked")
+    x = JB.batch_from_ints(xs, 2 * m)
+    r = JM.reduce_shared_batch(ctx, jnp.asarray(x), impl="blocked")
+    return (vint, xs, x, np.asarray(ctx.v), np.asarray(ctx.mu),
+            np.asarray(r).astype(np.int64))
+
+
+@pytest.mark.parametrize("cluster", [1, 8])
+@pytest.mark.parametrize("m", [4, 9])
+def test_barrett_over_digit_product_matches_jax(m, cluster):
+    """The Barrett core with the schedule's product, against JAX
+    reduce_shared_batch with x < B^(2m)."""
+    vint, xs, x, v, mu, want = _jax_reduce(m)
+    mul = functools.partial(D.mul_digits_plain, cluster=cluster, k_chunk=32)
+    r = F.barrett_reference(bi.limbs_from_numpy(x, "cpu"),
+                            bi.limbs_from_numpy(mu, "cpu"),
+                            bi.limbs_from_numpy(v, "cpu"),
+                            h=MA.barrett_h(m), mul=mul)[:, :m]
+    np.testing.assert_array_equal(r.numpy().astype(np.int64), want)
+    assert bi.batch_to_ints(r) == [xx % vint for xx in xs]
+
+
+@pytest.mark.parametrize("batch,sms,size", [
+    (256, 132, 1), (128, 132, 2), (64, 132, 4), (16, 132, 8), (1, 132, 8),
+    (5, 132, 8), (131, 132, 2), (132, 132, 1), (133, 132, 1),
+    # an H100 PCIe's 114 SMs
+    (16, 114, 8), (32, 114, 4), (57, 114, 2), (114, 114, 1)])
+def test_cluster_size(batch, sms, size):
+    assert D.cluster_size(batch, sms) == size
+    assert D.cluster_plan(batch, 100, sms)[0] == size
+
+
+@pytest.mark.parametrize("batch", [256, 128, 64, 16])
+@pytest.mark.parametrize("rows", [1, 16, 17, 100, 4098])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cluster_plan_covers_every_row_once(batch, rows, weighted):
+    tiles = -(-rows // D.TILE_ROWS)
+    weights = ([D.tile_weight(t, 2 * rows, rows, 8) for t in range(tiles)]
+               if weighted else None)
+    cs, ranges = D.cluster_plan(batch, rows, weights=weights)
+    assert len(ranges) == cs
+    covered = [r for lo, hi in ranges for r in range(lo, hi)]
+    assert covered == list(range(rows))
+    for lo, _ in ranges:
+        assert lo % D.TILE_ROWS == 0 or lo == rows
+    if weighted and tiles >= 8 * cs:
+        w = weights
+        share = [sum(w[lo // 16:-(-hi // 16)]) for lo, hi in ranges]
+        assert max(share) <= sum(w) / cs + max(w)
+
+
+def test_k_chunk_must_keep_s32_sums_exact():
+    u = torch.full((1, 4), B - 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="k_chunk"):
+        D.digit_columns_plain(u, u, 8, k_chunk=D.S32_TERMS + 32)
+    with pytest.raises(ValueError, match="k_chunk"):
+        D.digit_columns_plain(u, u, 8, k_chunk=48)
