@@ -12,7 +12,9 @@ Phases, each of which raises on failure:
      bit, at the main paths' shapes: divmod_batch at 2^15..2^18 bits with
      each Refine step and the finalization run through kernel AND plain
      version on the same inputs, synthetic adversarial Refine states at
-     the 2^15-bit windows, the standalone product at 2^15 and 2^18 bits;
+     the 2^15-bit windows, at every cluster size (1/2/4/8 blocks per
+     instance) and at a 2^18-bit modulus's W = 32778, the standalone
+     product at 2^15 and 2^18 bits;
      then the Barrett kernel on adversarial operands at 2^15- and
      2^17-bit moduli (lanes that take each correction branch, counted
      in the plain version) and at the real states of the modular path
@@ -31,7 +33,8 @@ Phases, each of which raises on failure:
      modmul_shared on 256/128/64 lanes (1 and 2 launches); at 2^15 bits
      reduce_batch and modmul_batch with 64 per-lane moduli and
      modexp_shared on 64 lanes with 256-bit exponents (674 launches);
-     every lane against Python % and pow; the 2^18-bit modulus raises;
+     at a 2^18-bit modulus the precompute (36 launches), reduce_shared
+     and modmul_shared on 4 lanes; every lane against Python % and pow;
      then ModArithService answering reduce, modmul and modexp requests
      against two interleaved moduli (one request split across buckets);
   5b. the frontend path: AsyncFrontend (impl cuda_fused) over the
@@ -51,10 +54,13 @@ Phases, each of which raises on failure:
      quarantine set and the plans' degraded_from as planned, nothing
      dropped;
   6. timing with CUDA events (median of 5 after a warm-up): each kernel
-     at each window it runs at, divmod_batch per precision (under
-     cuda_fused and cuda_batched, with busy shares); per modulus size the
-     precompute, reductions/s, modmuls/s, modexp (256-bit exponents) and
-     exponentiations/s, the device's busy share, and the Barrett kernel
+     at each window it runs at (powdiff and update with their cluster
+     size, limb products per second per SM and update's product columns
+     kept), divmod_batch per precision (under cuda_fused and
+     cuda_batched, with busy shares); per modulus size the precompute
+     (also at 2^18 bits), reductions/s, modmuls/s, modexp (256-bit
+     exponents) and exponentiations/s, the device's busy share, and the
+     Barrett kernel
      (at the reduce and the 64-lane modexp shapes) and mul_batch (at
      modmul's a*b shape) per launch against their bounds, with the
      cluster size each used and its limb products per second per SM;
@@ -85,9 +91,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PRECISIONS = ((2 ** 15, 256), (2 ** 16, 128), (2 ** 17, 64), (2 ** 18, 32))
-# modulus bits and lanes of the modular-arithmetic path; 2^18-bit moduli
-# do not fit the kernels' shared-memory staging (an explicit error)
+# modulus bits and lanes of the modular-arithmetic path; a 2^18-bit
+# modulus runs on MOD18_LANES lanes (the depth cut to the time limit)
 MODULI = ((2 ** 15, 256), (2 ** 16, 128), (2 ** 17, 64))
+MOD18_LANES = 4
 # modexp exponent limbs: 256-bit exponents, the ladder's depth cut to
 # fit the run's time limit (a full 2^15-bit exponent is ~41,000 modmuls)
 E_LIMBS = 16
@@ -424,6 +431,25 @@ class Smoke:
             self.compare("update", (F.update_cuda(*args, win=win),),
                          (F.update_reference(*args, win=win),))
             log(f"powdiff+update synthetic states, win {win}: exact")
+        # every cluster size, and a 2^18-bit modulus's full window (4
+        # lanes, the cluster of the precompute's single lane)
+        for batch, fw, win in ((256, full_w, 528), (100, full_w, 528),
+                               (64, full_w, 528), (5, full_w, 528),
+                               (4, 32778, 32778)):
+            st = self.synthetic_states(fw, win, batch, batch + win)
+            sk, xk = F.powdiff_cuda(st["v"], st["w"], st["hpd"], st["lpd"],
+                                    st["s"], win=win)
+            self.compare("powdiff", (sk, xk), F.powdiff_reference(
+                st["v"], st["w"], st["hpd"], st["lpd"], st["s"], win=win))
+            args = (st["w"], xk, sk, st["h"], st["m"], st["active"])
+            self.compare("update", (F.update_cuda(*args, win=win),),
+                         (F.update_reference(*args, win=win),))
+            cs = self.D.cluster_size(batch, self.sms)
+            got = (self.D.last_cluster["powdiff"],
+                   self.D.last_cluster["update"])
+            self.expect(f"step clusters at batch {batch}", got, (cs, cs))
+            log(f"powdiff+update synthetic states, win {win}, batch "
+                f"{batch}, cluster {cs}: exact")
         # the finalization at W = 2056 around the true shifted inverse
         W = full_w
         rnd = random.Random(5)
@@ -540,6 +566,7 @@ class Smoke:
         share."""
         F, K, S = self.F, self.K, self.S
         rows, agg = [], {}
+        self.step_full = {}
         for bits, batch in PRECISIONS:
             rec, first = self.record[bits], bits == PRECISIONS[0][0]
             items = []                    # (row, kernel, fn, plain, work)
@@ -559,18 +586,20 @@ class Smoke:
                 pd_bytes = 4 * batch * (2 * win + fw + 4)
                 up_bytes = 4 * (act * (2 * win + fw)
                                 + (batch - act) * 2 * fw + 4 * batch)
+                pd_work, up_work, kept = self.step_products(st)
+                row["update_columns_kept"] = kept
                 items.append((row, "powdiff",
                               lambda a=pd_args, w=win: F.powdiff_cuda(
                                   *a, win=w),
                               lambda a=pd_args, w=win: F.powdiff_reference(
                                   *a, win=w),
-                              (batch * win * win, pd_bytes)))
+                              (pd_work, pd_bytes)))
                 items.append((row, "update",
                               lambda a=up_args, w=win: F.update_cuda(
                                   *a, win=w),
                               lambda a=up_args, w=win: F.update_reference(
                                   *a, win=w),
-                              (act * win * win, up_bytes)))
+                              (up_work, up_bytes)))
             c = rec["correct"]
             W = c["u"].shape[1]
             cargs = (c["u"], c["v"], c["si"])
@@ -586,10 +615,30 @@ class Smoke:
                           lambda: K.mul_plain(q, v, m),
                           (batch * m * (m + 1) // 2, 4 * batch * 3 * m)))
             dev = self.device_us([it[2] for it in items])
+            last = len(rec["step"]) - 1          # the full-window launch
             for j, (row, name, fn, plain, work) in enumerate(items):
                 row[f"{name}_ms"] = self.time_ms(fn)
                 row[f"{name}_device_ms"] = dev[j] / 1e3 if dev else None
                 row[f"{name}_bound_ms"] = self.bound(*work)[0]
+                if name in ("powdiff", "update"):
+                    row[f"{name}_products"] = work[0]
+                    row[f"{name}_cluster"] = self.D.last_cluster[name]
+                    if row["iter"] == last:
+                        row[f"{name}_burst_ms"] = self.burst_ms(fn, n=10)
+                    ms = row[f"{name}_device_ms"] or row.get(
+                        f"{name}_burst_ms")
+                    row[f"{name}_rate_per_sm"] = self.rate(work[0], ms)
+                    if row["iter"] == last:
+                        self.step_full.setdefault(bits, {})[name] = dict(
+                            shape=f"full-window launch, {win} limbs, "
+                            f"2^{bits.bit_length() - 1} bits x {batch}",
+                            device_ms=row[f"{name}_device_ms"],
+                            burst_ms=row[f"{name}_burst_ms"],
+                            event_ms=row[f"{name}_ms"],
+                            bound_ms=row[f"{name}_bound_ms"],
+                            cluster=row[f"{name}_cluster"],
+                            rate_per_sm=row[f"{name}_rate_per_sm"],
+                            products=work[0])
                 if first:
                     row[f"{name}_plain_ms"] = self.time_ms(plain)
                     a = agg.setdefault(name, dict(
@@ -602,6 +651,8 @@ class Smoke:
                     a["plain_ms"] += row[f"{name}_plain_ms"]
                     a["products"] += work[0]
                     a["bytes"] += work[1]
+                    if name in ("powdiff", "update"):
+                        a["cluster"] = row[f"{name}_cluster"]
             for row in dict((id(it[0]), it[0]) for it in items).values():
                 if row is tail:
                     dm = self.time_ms(lambda: S.divmod_batch(u, v))
@@ -627,8 +678,42 @@ class Smoke:
                         agg["mul_batch"]["cluster"] = row["mul_batch_cluster"]
                 rows.append(row)
                 log(json.dumps(row))
+        for name in ("powdiff", "update"):
+            agg[name]["full_window"] = {
+                f"2^{b.bit_length() - 1}": d[name]
+                for b, d in self.step_full.items()}
         self.report["timing"] = rows
         self.agg = agg
+
+    def step_products(self, st):
+        """Limb products one powdiff and one update launch need on these
+        states: prec(vp) * prec(wq) per lane for powdiff; for update, on
+        each active lane, the products i + j < n of prec(wq) x prec(x)
+        limbs, n = min(prec(wq) + prec(x), max(h - 2m, 0) + win), where
+        the kernel's product stops; and the share of update's product
+        columns that n keeps."""
+        A, win = self.A, st["win"]
+        pv = A.prec(A.shift(st["v"], -st["s"])[:, :win]).tolist()
+        pw = A.prec(st["w"][:, :win]).tolist()
+        px = A.prec(st["x"][:, :win]).tolist()
+        off = (st["h"] - 2 * st["m"]).tolist()
+        act = st["active"].tolist()
+        pd = sum(a * b for a, b in zip(pv, pw))
+        up = cols = kept = 0
+        for a, b, o, on in zip(pw, px, off, act):
+            if not (on and a and b):
+                continue
+            n = min(a + b, max(o, 0) + win, 2 * win)
+            a, b = min(a, b), max(a, b)
+            # sum over i < a of min(b, max(0, n - i))
+            full = max(0, min(a, n - b + 1))
+            lo, hi = max(0, n - b + 1), min(a - 1, n - 1)
+            tri = (hi - lo + 1) * n - (lo + hi) * (hi - lo + 1) // 2 \
+                if hi >= lo else 0
+            up += full * b + tri
+            cols += a + b
+            kept += n
+        return pd, up, kept / cols if cols else None
 
     def rate(self, products, device_ms):
         """Limb products per second per SM over a kernel's device time."""
@@ -904,14 +989,40 @@ class Smoke:
                 raise AssertionError(f"{tag}: modexp_shared inexact")
             log(f"{tag}: modexp_shared on 64 lanes, {16 * E_LIMBS}-bit "
                 f"exponents: {n} launches ({dt:.2f} s), every lane exact")
-        try:
-            self.launched(lambda: MA.barrett_precompute(self.torch.ones(
-                16384, dtype=self.torch.int32, device=self.dev)))
-        except ValueError as exc:
-            log(f"2^18-bit modulus: ValueError ({exc})")
-        else:
-            raise AssertionError("a 2^18-bit modulus did not raise")
+        self.modulus_2p18()
         self.mod_service()
+
+    def modulus_2p18(self):
+        """A 2^18-bit modulus under cuda_fused: the precompute's step
+        kernels stage its full W = 32778 window; reduce_shared and
+        modmul_shared on MOD18_LANES lanes, every lane exact."""
+        MA, CM, B = self.MA, self.CM, 1 << 16
+        ints = self.bi.batch_to_ints
+        m, n = M18, MOD18_LANES
+        tag = "2^18-bit modulus"
+        L = mod_operands(m, 8, 2 ** 18 + 3)
+        vt = self.tensor([L["v"]], m)[0]
+        ctx, k = self.launched(lambda: MA.barrett_precompute(vt))
+        self.expect(f"{tag} precompute launches", k,
+                    CM.precompute_launches(m))
+        mu = self.bi.to_int(self.bi.limbs_to_numpy(ctx.mu))
+        if mu - B ** MA.barrett_h(m) // L["v"] not in (0, 1):
+            raise AssertionError(f"{tag}: mu is not shinv + lambda")
+        x, a, b = (self.tensor(L["x"][:n], 2 * m), self.tensor(L["a"][:n], m),
+                   self.tensor(L["b"][:n], m))
+        r, k = self.launched(lambda: MA.reduce_shared(ctx, x))
+        self.expect(f"{tag} reduce launches", k, CM.barrett_launches())
+        if ints(r) != [xx % L["v"] for xx in L["x"][:n]]:
+            raise AssertionError(f"{tag}: reduce_shared inexact")
+        p, k = self.launched(lambda: MA.modmul_shared(ctx, a, b))
+        self.expect(f"{tag} modmul launches", k, CM.modmul_launches())
+        if ints(p) != [aa * bb % L["v"] for aa, bb in zip(L["a"][:n],
+                                                          L["b"][:n])]:
+            raise AssertionError(f"{tag}: modmul_shared inexact")
+        log(f"{tag}: precompute {CM.precompute_launches(m)} launches, "
+            f"reduce_shared and modmul_shared on {n} lanes (1 and 2 "
+            f"launches), every lane exact")
+        self.mod_inputs[2 ** 18] = dict(L=L, vt=vt, ctx=ctx, x=x, a=a, b=b)
 
     def mod_service(self):
         m = 2048
@@ -1044,6 +1155,16 @@ class Smoke:
                                       [L["v"]] * 4)):
                     raise AssertionError(f"modexp inexact at {bits} bits")
             log(json.dumps(row))
+        # the precompute at a 2^18-bit modulus, which its step kernels'
+        # staging now holds
+        fn = lambda: MA.barrett_precompute(self.mod_inputs[2 ** 18]["vt"])
+        share = self.device_share(fn)
+        row = dict(modulus_bits=2 ** 18, lanes=MOD18_LANES,
+                   precompute_ms=self.time_ms(fn, runs=3),
+                   precompute_device_ms=share["device_ms"],
+                   precompute_busy_share=share["device_busy_share"])
+        rows.append(row)
+        log(json.dumps(row))
         self.report["timing_modarith"] = rows
 
     # -- phase 3c: the pair kernel against its plain version ----------------
@@ -1417,7 +1538,9 @@ class Smoke:
         the launches of one divmod_batch at 2^15 bits, batch 256 (for
         mul_batch and mul_pairs: their q*v product there, with the
         2^18 x 32 q*v product under at_2p18; for barrett: one
-        reduce_shared launch at the 2^15-bit modulus, 256 lanes).  ms is
+        reduce_shared launch at the 2^15-bit modulus, 256 lanes; powdiff
+        and update add their full-window launch of each division cell
+        under full_window).  ms is
         the profiler's device time (CUDA events around the wrapper call
         where the profiler saw nothing; ms_source says which), event_ms
         the events' time with the wrapper's host cost (for mul_pairs its
@@ -1444,7 +1567,7 @@ class Smoke:
                 e["cluster"] = a["cluster"]
             if name in GRID_TWINS:
                 e["also_replaces"] = GRID_TWINS[name]
-            for extra in ("at_2p18", "call_device_ms"):
+            for extra in ("at_2p18", "call_device_ms", "full_window"):
                 if extra in a:
                     e[extra] = a[extra]
             out.append(e)

@@ -30,10 +30,13 @@ Every function takes `impl` (`kernels/ops.py`; None = cuda_fused).
 Contract: v >= 1 (the service rejects v = 0 before it builds a
 context); `barrett_reduce` raises ValueError for x wider than 2m limbs.
 On the card, under cuda_fused and cuda_batched, whose kernels stage
-their operands in shared memory, a modulus is limited to the width whose
-Barrett window (2W limbs) fits: 2^17-bit moduli run, 2^18-bit ones raise
-in `barrett_precompute` before any launch.  cuda_pairs and blocked have
-no such cap and run 2^18-bit moduli; nothing reroutes on its own.
+their operands in shared memory at two bytes per limb, a modulus is
+limited to the width whose operands fit (`check_width`, from the
+kernel libraries): about 23,000 limbs under cuda_fused (the Barrett
+kernel's x, mu and v) and 28,900 under cuda_batched, so 2^18-bit moduli
+(16384 limbs) run under both; a wider one raises in
+`barrett_precompute` before any launch.  cuda_pairs and blocked have no
+such cap; nothing reroutes on its own.
 """
 
 from __future__ import annotations
@@ -46,8 +49,7 @@ import torch
 from .bigint import DTYPE, LOG_BASE, limbs_from_numpy, one_hot_pow
 from . import arith as A
 from . import shinv as S
-from repro_torch.kernels import ops as K
-from repro_torch.kernels.build import SMEM_BYTES
+from repro_torch.kernels import build, digitmma as D, ops as K
 from repro_torch.obs import costmodel as CM
 
 MU_GUARD = 2    # guard digits above 2m in h (keeps qhat error in {-1,0,+1})
@@ -89,20 +91,35 @@ def context_from_numpy(v, mu, k, device) -> BarrettContext:
 
 
 def check_width(device, m: int, impl: str | None = None) -> None:
-    """Raise ValueError where impl's kernels cannot run an m-limb
-    modulus on `device`: cuda_fused and cuda_batched stage 2W limbs of
-    the Barrett window in shared memory, so on CUDA they stop at 2^17
-    bits; cuda_pairs, blocked and the CPU have no cap."""
+    """Raise ValueError where impl's kernels cannot run an m-limb modulus
+    on `device`, before any launch.  On CUDA, cuda_fused (the step,
+    Barrett and product kernels) and cuda_batched (the product kernel)
+    stage their operands in shared memory: the widths they stage are
+    asked of the kernel libraries, and no product operand may pass the
+    digit product's column-sum contract (`digitmma.MAX_LIMBS`).
+    cuda_pairs, blocked and the CPU have no cap."""
     impl = K.check_impl(impl)
+    if (torch.device(device).type != "cuda"
+            or impl not in ("cuda_fused", "cuda_batched")):
+        return
     width = barrett_width(m)
-    if (torch.device(device).type == "cuda"
-            and impl in ("cuda_fused", "cuda_batched")
-            and 4 * 2 * width > SMEM_BYTES):
+    if width > D.MAX_LIMBS:
         raise ValueError(
-            f"a {m}-limb modulus needs a {width}-limb Barrett window; the "
-            f"{impl} kernels stage 2 x {width} limbs, more than shared "
-            f"memory holds (they run moduli up to 2^17 bits; "
-            f"impl='cuda_pairs' has no such cap)")
+            f"a {m}-limb modulus needs a {width}-limb Barrett window, past "
+            f"the {impl} kernels' {D.MAX_LIMBS}-limb column-sum contract "
+            f"(impl='cuda_pairs' has no such cap)")
+    libs = build.build_all()
+    if impl == "cuda_fused":       # precompute steps, reduce, modmul's a*b
+        need = max(libs["step"].step_smem_bytes(width),
+                   libs["barrett"].barrett_smem_bytes(2 * m, m, width),
+                   libs["mul"].mul_batch_smem_bytes(m, m, 2 * m))
+    else:                          # every product is at most W x W -> 2W
+        need = libs["mul"].mul_batch_smem_bytes(width, width, 2 * width)
+    if need > D.DYNAMIC_SMEM_BYTES:
+        raise ValueError(
+            f"a {m}-limb modulus (Barrett window {width} limbs): the {impl} "
+            f"kernels stage {need} bytes, more than shared memory holds "
+            f"(impl='cuda_pairs' has no such cap)")
 
 
 def barrett_precompute(v: torch.Tensor,

@@ -101,9 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "mul_batch_launch": [P, P, P, P, I, I, I, I, P, P],
         "mul_batch_scratch_bytes": [I],
         "mul_batch_smem_bytes": [I, I, I],
-        "powdiff_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
-        "update_launch": [P, P, P, P, P, P, P, P, I, I, I, P],
+        "powdiff_launch": [P, P, P, P, P, P, P, P, I, I, I, P, P],
+        "update_launch": [P, P, P, P, P, P, P, P, I, I, I, P, P],
         "step_scratch_bytes": [I],
+        "step_smem_bytes": [I],
         "correct_launch": [P, P, P, P, P, P, P, I, I, P],
         "correct_scratch_bytes": [I],
         "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P, P],
@@ -172,9 +173,9 @@ def check(err: int, what: str) -> None:
         raise LaunchError(what, err)
 
 
-# Dynamic shared memory a block may use on Hopper.  The step, correct
-# and pair kernels stage their product operands there as 32-bit words,
-# the product and Barrett kernels as 16-bit limbs (csrc/digitmma.cuh).
+# Dynamic shared memory a block may use on Hopper.  The correct and pair
+# kernels stage their product operands there as 32-bit words, the
+# product, step and Barrett kernels as 16-bit limbs (csrc/digitmma.cuh).
 SMEM_BYTES = 227 * 1024
 
 

@@ -1,5 +1,6 @@
 // Digit products on the int8 tensor cores, with an instance spread over
-// a thread-block cluster: the shared routines of mul.cu and barrett.cu.
+// a thread-block cluster: the shared routines of mul.cu, barrett.cu and
+// step.cu.
 //
 // Staging, two bytes per limb in shared memory.  The operands arrive as
 // int32 limbs (< 2^16) and are packed to 16-bit limbs, which read as
@@ -29,7 +30,7 @@
 // scratch; after cluster.sync() every block resolves an even share of
 // the columns, and the carry chain crosses blocks through each block's
 // (generate, propagate) pair, read over distributed shared memory.
-// Comparisons reduce over the cluster the same way.
+// Comparisons and reductions run over the cluster the same way.
 #pragma once
 
 #include <climits>
@@ -81,29 +82,45 @@ struct Block {
 // staging
 // ---------------------------------------------------------------------------
 
-// A layout of n limbs of src (a buffer of a_bytes(cap), cap >= n).
-__device__ inline void stage_a(unsigned char* buf, int cap,
-                               const int32_t* src, int n) {
+// A layout of the n limbs limb(0), ..., limb(n - 1) (a buffer of
+// a_bytes(cap), cap >= n).  `limb` may read at a per-lane offset (the
+// step kernels' shifted operand), so one layout serves every caller.
+template <class F>
+__device__ inline void stage_a_fn(unsigned char* buf, int cap, F limb,
+                                  int n) {
   uint16_t* w = reinterpret_cast<uint16_t*>(buf);
   const int words = (int)(a_bytes(cap) / 2);
   for (int i = threadIdx.x; i < words; i += kThreads) {
     const int j = i - kAPad / 2;
-    w[i] = (j >= 0 && j < n) ? (uint16_t)src[j] : (uint16_t)0;
+    w[i] = (j >= 0 && j < n) ? (uint16_t)limb(j) : (uint16_t)0;
   }
 }
 
-// B layout of n limbs of src (a buffer of b_bytes(cap), cap >= n): limb
-// j holds digits 2j (low) and 2j + 1, at bytes P - 2j and P - 2j - 1,
-// i.e. the byte-swapped limb at 16-bit word (P - 1) / 2 - j = n + 6 - j.
-__device__ inline void stage_b(unsigned char* buf, int cap,
-                               const int32_t* src, int n) {
+// B layout of the n limbs limb(0), ..., limb(n - 1) (a buffer of
+// b_bytes(cap), cap >= n): limb j holds digits 2j (low) and 2j + 1, at
+// bytes P - 2j and P - 2j - 1, i.e. the byte-swapped limb at 16-bit
+// word (P - 1) / 2 - j = n + 6 - j.
+template <class F>
+__device__ inline void stage_b_fn(unsigned char* buf, int cap, F limb,
+                                  int n) {
   uint16_t* w = reinterpret_cast<uint16_t*>(buf);
   const int words = (int)(b_bytes(cap) / 2);
   for (int i = threadIdx.x; i < words; i += kThreads) {
     const int j = n + 6 - i;
-    uint32_t x = (j >= 0 && j < n) ? (uint32_t)src[j] : 0u;
+    uint32_t x = (j >= 0 && j < n) ? (uint32_t)limb(j) : 0u;
     w[i] = (uint16_t)(((x >> 8) | (x << 8)) & kMask);
   }
+}
+
+// The two layouts of n limbs of src.
+__device__ inline void stage_a(unsigned char* buf, int cap,
+                               const int32_t* src, int n) {
+  stage_a_fn(buf, cap, [=](int j) { return (uint32_t)src[j]; }, n);
+}
+
+__device__ inline void stage_b(unsigned char* buf, int cap,
+                               const int32_t* src, int n) {
+  stage_b_fn(buf, cap, [=](int j) { return (uint32_t)src[j]; }, n);
 }
 
 __device__ inline void zero_bytes(unsigned char* buf, size_t bytes) {
@@ -281,14 +298,15 @@ __device__ inline void share(int n, int rank, int cs, int& lo, int& hi) {
 
 // Carry chain over positions [0, n), each block of the cluster over its
 // share: digit(i) gives position i's raw value, generate and propagate
-// bits; store(i, (s_i +/- c_i) & kMask) receives every output.  The
-// carry into a block composes the (generate, propagate) pairs of the
-// blocks below it.  Ends with cluster.sync(), so the outputs are
-// visible to the whole cluster.  digit(i) may read only position i of
-// an array that store overwrites.
+// bits; store(i, (s_i +/- c_i) & kMask) receives every output, with
+// c_0 = cin.  The carry into a block composes the (generate, propagate)
+// pairs of the blocks below it on cin.  Ends with cluster.sync(), so
+// the outputs are visible to the whole cluster.  digit(i) may read only
+// position i of an array that store overwrites.
 template <class F, class S>
 __device__ void cluster_chain(int n, F digit, bool subtract, S store,
-                              Block& st, cg::cluster_group& cl) {
+                              Block& st, cg::cluster_group& cl,
+                              uint32_t cin = 0) {
   const int rank = (int)cl.block_rank(), cs = (int)cl.num_blocks();
   int lo_b, hi_b;
   share(n, rank, cs, lo_b, hi_b);
@@ -346,13 +364,13 @@ __device__ void cluster_chain(int n, F digit, bool subtract, S store,
   cl.sync();                      // every block's pair is published
   const uint32_t bg = wid > 0 ? sh.g[wid - 1] : 0u;
   const uint32_t bp = wid > 0 ? sh.p[wid - 1] : 1u;
-  uint32_t cin = 0;
+  uint32_t c_in = cin;
   for (int r = 0; r < rank; ++r) {
     const uint32_t* rp = cl.map_shared_rank(st.pub, r);
-    cin = rp[0] | (rp[1] & cin);
+    c_in = rp[0] | (rp[1] & c_in);
   }
   const uint32_t xg = eg | (ep & bg), xp = ep & bp;
-  uint32_t c = xg | (xp & cin);
+  uint32_t c = xg | (xp & c_in);
   for (int i = lo; i < hi; ++i) {
     const Digit d = digit(i);
     store(i, (subtract ? d.s - c : d.s + c) & kMask);
@@ -381,6 +399,21 @@ __device__ bool cluster_lt(int n, FA a, FB b, Block& st,
   for (int r = 0; r < cs; ++r) best = max(best, *cl.map_shared_rank(&st.pub[2], r));
   cl.sync();
   return (best & 1u) != 0;
+}
+
+// op over one int per thread of the whole cluster (each block's
+// block_reduce, then over the blocks); every thread gets the result.
+template <class Op>
+__device__ int cluster_reduce(int x, Op op, int ident, Block& st,
+                              cg::cluster_group& cl) {
+  x = limbs::block_reduce(x, op, ident, st.sh);
+  if (threadIdx.x == 0) st.pub[3] = (uint32_t)x;
+  cl.sync();
+  int r = ident;
+  for (int q = 0; q < (int)cl.num_blocks(); ++q)
+    r = op(r, (int)*cl.map_shared_rank(&st.pub[3], q));
+  cl.sync();
+  return r;
 }
 
 // Column sums col[0, n_cols) (zero above; each < 2^48) -> canonical limbs

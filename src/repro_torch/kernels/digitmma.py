@@ -1,9 +1,10 @@
 """The digit-GEMM schedule of the product kernels (`csrc/digitmma.cuh`),
 its host-side cluster plan, and a plain emulation of it for the tests.
 
-The redesigned `mul_batch_kernel` and `barrett_kernel` read their
-16-bit limbs as 8-bit digits and compute the digit-column sums of a
-product as one matrix product on the int8 tensor cores
+The product, Barrett and step kernels (`mul_batch_kernel`,
+`barrett_kernel`, `powdiff_kernel`, `update_kernel`) read their 16-bit
+limbs as 8-bit digits and compute the digit-column sums of a product
+as one matrix product on the int8 tensor cores
 (`mma.sync.m16n8k32.s32.u8.u8.s32`).  With N = 8 columns per row,
 
     C[r, c] = sum_k  a8[r*N + k] * b8[c - k],   k in [-(nb8 - 1), N - 1]
@@ -26,7 +27,7 @@ blocks; block `rank` takes a contiguous range of row tiles, split by
 The wrappers ask only `cluster_size(batch, device_sms(device))`; the
 kernels split rows themselves (`tile_scan` in csrc/digitmma.cuh) and
 size their shared-memory staging (`mul_batch_smem_bytes`,
-`barrett_smem_bytes` in the libraries).  `cluster_plan` (the split as
+`barrett_smem_bytes`, `step_smem_bytes` in the libraries).  `cluster_plan` (the split as
 row ranges) and `digit_columns_plain` (the schedule's CPU emulation: the
 same windows, clipping, flushes, groups and cluster split, with int32
 tile sums whose bound is asserted) are test-only: nothing on the main

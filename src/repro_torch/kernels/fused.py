@@ -11,14 +11,18 @@ one and a Barrett reduction one, as in the JAX package
 
 The TPU's two kernel generations computed the same functions (they
 differed only in how the product fit VMEM); on Hopper one kernel per
-stage covers every width.  `powdiff_reference`, `update_reference`,
-`step_reference`, `correct_reference` and `barrett_reference` are the
-plain PyTorch versions (the JAX package's `_powdiff_reference`,
-`step_reference`, `correct_reference` and `barrett_reference`,
-batched).  Each takes the product as `mul` (default the plain
-`mul_plain`): `kernels/ops.py` runs them for CPU tensors and, with the
-impl's product, for every impl but cuda_fused, and the tests and
-`chip_smoke.py` hold the kernels to them.
+stage covers every width.  powdiff, update and barrett compute their
+products as int8 digit GEMMs with an instance spread over a cluster
+(`csrc/digitmma.cuh`, `kernels/digitmma.py`); their wrappers ask the
+library whether a width's staging fits shared memory
+(`step_smem_bytes`, `barrett_smem_bytes`).  `powdiff_reference`,
+`update_reference`, `step_reference`, `correct_reference` and
+`barrett_reference` are the plain PyTorch versions (the JAX package's
+`_powdiff_reference`, `step_reference`, `correct_reference` and
+`barrett_reference`, batched).  Each takes the product as `mul`
+(default the plain `mul_plain`): `kernels/ops.py` runs them for CPU
+tensors and, with the impl's product, for every impl but cuda_fused,
+and the tests and `chip_smoke.py` hold the kernels to them.
 """
 
 from __future__ import annotations
@@ -185,11 +189,41 @@ def _scalars(batch: int, device, **cols) -> dict[str, torch.Tensor]:
 
 
 def _operands(full_w: int, batch: int, staged: int, **arrs) -> None:
-    """Check the limb operands; `staged` limbs go to shared memory."""
+    """Check the limb operands; `staged` 32-bit limbs go to shared
+    memory (the finalization kernel)."""
     if 4 * staged > SMEM_BYTES:
         raise ValueError(f"{staged} staged limbs exceed shared memory")
     for name, a in arrs.items():
         check_limbs(name, a, (batch, full_w))
+
+
+def _step_lib(win: int, batch: int, full_w: int, **arrs):
+    """Check a step launch's limb operands and window; returns the step
+    library once it says the window's staging fits shared memory."""
+    if not 1 <= win <= full_w:
+        raise ValueError(f"window {win} outside [1, {full_w}]")
+    for name, a in arrs.items():
+        check_limbs(name, a, (batch, full_w))
+    D.check_contract(win, win)
+    lib = build.lib("step")
+    if lib.step_smem_bytes(win) > D.DYNAMIC_SMEM_BYTES:
+        raise ValueError(f"a {win}-limb window exceeds shared memory")
+    return lib
+
+
+def _step_launch(lib, kernel: str, batch: int, full_w: int, win: int,
+                 device, *ptrs) -> None:
+    """One launch of a step kernel on clusters of
+    `digitmma.cluster_size(batch, sms)` blocks per instance."""
+    scratch = torch.empty(batch * lib.step_scratch_bytes(win),
+                          dtype=torch.uint8, device=device)
+    cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(device)))
+    err = getattr(lib, f"{kernel}_launch")(
+        *ptrs, scratch.data_ptr(), batch, full_w, win, ctypes.byref(cluster),
+        stream_ptr(scratch))
+    build.check(err, f"{kernel} kernel")
+    build.count(kernel)
+    D.last_cluster[kernel] = cluster.value
 
 
 def powdiff_cuda(v, w, hpd, lpd, s, *, win: int):
@@ -203,23 +237,15 @@ def _powdiff_launch(v, w, hpd, lpd, s, *, win: int):
     """The powdiff launch; the sign stays (batch,) int32 0/1, as
     `update_cuda` takes it."""
     batch, full_w = v.shape
-    if not 1 <= win <= full_w:
-        raise ValueError(f"window {win} outside [1, {full_w}]")
-    _operands(full_w, batch, 2 * win, v=v, w=w)
+    lib = _step_lib(win, batch, full_w, v=v, w=w)
     sc = _scalars(batch, v.device, hpd=hpd, lpd=lpd, s=s)
     sign = torch.empty(batch, dtype=torch.int32, device=v.device)
     x = torch.empty_like(v)
     if batch:
-        lib = build.lib("step")
-        scratch = torch.empty(batch * lib.step_scratch_bytes(win),
-                              dtype=torch.uint8, device=v.device)
-        err = lib.powdiff_launch(
-            v.data_ptr(), w.data_ptr(), sc["hpd"].data_ptr(),
-            sc["lpd"].data_ptr(), sc["s"].data_ptr(), sign.data_ptr(),
-            x.data_ptr(), scratch.data_ptr(), batch, full_w, win,
-            stream_ptr(v))
-        build.check(err, "powdiff kernel")
-        build.count("powdiff")
+        _step_launch(lib, "powdiff", batch, full_w, win, v.device,
+                     v.data_ptr(), w.data_ptr(), sc["hpd"].data_ptr(),
+                     sc["lpd"].data_ptr(), sc["s"].data_ptr(),
+                     sign.data_ptr(), x.data_ptr())
     return sign, x
 
 
@@ -227,22 +253,14 @@ def update_cuda(w, x, sign, h, m, active, *, win: int):
     """Kernel of `update_reference`: the new full-width iterate.  `sign`
     is bool or int32 0/1 (int32 costs no conversion)."""
     batch, full_w = w.shape
-    if not 1 <= win <= full_w:
-        raise ValueError(f"window {win} outside [1, {full_w}]")
-    _operands(full_w, batch, 2 * win, w=w, x=x)
+    lib = _step_lib(win, batch, full_w, w=w, x=x)
     sc = _scalars(batch, w.device, sign=sign, h=h, m=m, act=active)
     out = torch.empty_like(w)
     if batch:
-        lib = build.lib("step")
-        scratch = torch.empty(batch * lib.step_scratch_bytes(win),
-                              dtype=torch.uint8, device=w.device)
-        err = lib.update_launch(
-            w.data_ptr(), x.data_ptr(), sc["sign"].data_ptr(),
-            sc["h"].data_ptr(), sc["m"].data_ptr(), sc["act"].data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), batch, full_w, win,
-            stream_ptr(w))
-        build.check(err, "update kernel")
-        build.count("update")
+        _step_launch(lib, "update", batch, full_w, win, w.device,
+                     w.data_ptr(), x.data_ptr(), sc["sign"].data_ptr(),
+                     sc["h"].data_ptr(), sc["m"].data_ptr(),
+                     sc["act"].data_ptr(), out.data_ptr())
     return out
 
 

@@ -85,6 +85,74 @@ def test_step_kernels_match_plain(dev, full_w, win):
     assert torch.equal(got, F.step_reference(st["v"], st["w"], **kw))
 
 
+def _step_lanes(batch, full_w, win, seed, dev):
+    """numpy-seeded Refine states of `batch` lanes: lane 0 all-0xFFFF,
+    lane 1 with v = 0, lane 2 with a one-limb w, the rest random; by
+    lane i % 3 the close branch (v shifted by win / 2, a short w,
+    h = 2 win - 1), the full branch with p > B^(h-m) (h = win) and with
+    p <= B^(h-m) (h = 2 win + m); every fourth lane inactive."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(batch)
+    kind, ms = i % 3, (i // 3) % 3
+    v = rng.integers(0, B, (batch, full_w), dtype=np.uint32)
+    w = rng.integers(0, B, (batch, full_w), dtype=np.uint32)
+    w[:, win:] = 0
+    w[kind == 0, max(1, win // 4):] = 0
+    v[0], w[0, :win] = B - 1, B - 1
+    if batch > 2:
+        v[1] = 0
+        w[2, 1:] = 0
+    ls = np.where(kind == 2, 2, 2 + i % 4)
+    hs = np.where(kind == 0, 2 * win - 1,
+                  np.where(kind == 1, win, 2 * win + ms))
+    col = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    h, m, l = col(hs), col(ms), col(ls)
+    return dict(v=bi.limbs_from_numpy(v, dev), w=bi.limbs_from_numpy(w, dev),
+                h=h, m=m, l=l, hpd=h - m, lpd=l - 2,
+                s=col(np.where(kind == 0, win // 2, kind)),
+                active=torch.tensor(i % 4 != 3, device=dev))
+
+
+def _check_step(st, win):
+    """powdiff and update against their plain versions on the same
+    inputs; the clusters each launch used."""
+    from repro_torch.kernels import digitmma as D
+    pd = (st["v"], st["w"], st["hpd"], st["lpd"], st["s"])
+    sk, xk = F.powdiff_cuda(*pd, win=win)
+    torch.cuda.synchronize()
+    sp, xp = F.powdiff_reference(*pd, win=win)
+    assert torch.equal(sk, sp) and torch.equal(xk, xp)
+    args = (st["w"], xk, sk, st["h"], st["m"], st["active"])
+    got = F.update_cuda(*args, win=win)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.update_reference(*args, win=win))
+    return D.last_cluster["powdiff"], D.last_cluster["update"]
+
+
+@pytest.mark.parametrize("batch", [1, 5, 16, 64, 131, 132, 133, 256])
+def test_step_kernels_every_cluster_size(dev, batch):
+    from repro_torch.kernels import digitmma as D
+    want = D.cluster_size(batch, D.device_sms(dev))
+    for full_w, win in ((40, 32), (600, 528)):
+        st = _step_lanes(batch, full_w, win, batch + win, dev)
+        assert _check_step(st, win) == (want, want)
+
+
+@pytest.mark.parametrize("win", [32, 528, 2056, 16392, 32778])
+def test_step_kernels_wide_windows(dev, win):
+    """One lane (cluster 8) at the windows of the division and
+    precompute schedules, up to a 2^18-bit modulus's W = 32778: the
+    all-0xFFFF lane, the close branch and the full branch with each
+    sign."""
+    from repro_torch.kernels import digitmma as D
+    want = D.cluster_size(1, D.device_sms(dev))
+    st = _step_lanes(6, win + 8, win, win, dev)
+    for lane in (0, 3, 4, 5):
+        one = {k: t[lane:lane + 1].contiguous() for k, t in st.items()}
+        one["active"][:] = True
+        assert _check_step(one, win) == (want, want)
+
+
 @pytest.mark.parametrize("w", [12, 40])
 def test_correct_kernel_matches_plain(dev, w):
     rnd = random.Random(w)
@@ -195,13 +263,41 @@ def test_modarith_on_card_exact_with_launch_counts(dev, m):
 
 
 def test_modulus_past_shared_memory_raises(dev):
-    """A 2^18-bit modulus (W = 32778) does not fit the kernels' shared
-    memory staging: an explicit error before any launch."""
+    """A 2^18-bit modulus (W = 32778) now fits the step, Barrett and
+    product kernels' staging: under cuda_fused and cuda_batched it
+    precomputes with `costmodel.precompute_launches(16384, impl)`
+    launches and reduces exactly.  A modulus past the new cap (the
+    Barrett kernel's x, mu and v at 24000 limbs) raises before any
+    launch, as one past the column-sum contract does under both."""
     from repro_torch.core import modarith as MA
+    m = 16384
+    rnd = random.Random(18)
+    mod = rnd.randint(B ** (m - 1), B ** m - 1)
+    xs = [B ** (2 * m) - 1, rnd.randint(0, B ** (2 * m) - 1), mod * 3, 5]
+    build.build_all()
+    for impl, name in (("cuda_fused", None), ("cuda_batched", "mul_batch")):
+        build.reset_launch_counts()
+        ctx = MA.barrett_precompute(_t([mod], m, dev)[0], impl)
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+        assert sum(counts.values()) == CM.precompute_launches(m, impl)
+        if name:
+            assert counts == {name: CM.precompute_launches(m, impl)}
+        else:
+            assert counts == {"powdiff": CM.precompute_launches(m) // 2,
+                              "update": CM.precompute_launches(m) // 2}
+        mu = bi.to_int(bi.limbs_to_numpy(ctx.mu))
+        assert mu - B ** MA.barrett_h(m) // mod in (0, 1)
+        got = MA.reduce_shared(ctx, _t(xs, 2 * m, dev), impl)
+        assert bi.batch_to_ints(got) == [x % mod for x in xs]
     build.reset_launch_counts()
     with pytest.raises(ValueError, match="shared memory"):
-        MA.barrett_precompute(torch.ones(16384, dtype=torch.int32,
+        MA.barrett_precompute(torch.ones(24000, dtype=torch.int32,
                                          device=dev))
+    for impl in ("cuda_fused", "cuda_batched"):
+        with pytest.raises(ValueError, match="column-sum contract"):
+            MA.barrett_precompute(torch.ones(32768, dtype=torch.int32,
+                                             device=dev), impl)
     assert build.launch_counts() == {}
 
 
@@ -291,18 +387,15 @@ def test_impls_on_card_exact_with_launch_counts(dev, impl):
 
 
 def test_2p18_modulus_runs_under_cuda_pairs(dev):
-    """A 2^18-bit modulus: cuda_batched raises before any launch, as
-    cuda_fused does; cuda_pairs, whose kernel stages two tiles whatever
-    the width, precomputes and reduces exactly."""
+    """A 2^18-bit modulus under cuda_pairs, whose kernel stages two tiles
+    whatever the width: the precompute and a reduction exact, with only
+    mul_pairs launched."""
     from repro_torch.core import modarith as MA
     m = 16384
     rnd = random.Random(18)
     mod = rnd.randint(B ** (m - 1), B ** m - 1)
     build.build_all()
     build.reset_launch_counts()
-    with pytest.raises(ValueError, match="shared memory"):
-        MA.barrett_precompute(_t([mod], m, dev)[0], "cuda_batched")
-    assert build.launch_counts() == {}
     ctx = MA.barrett_precompute(_t([mod], m, dev)[0], "cuda_pairs")
     xs = [B ** (2 * m) - 1, rnd.randint(0, B ** (2 * m) - 1)]
     got = MA.reduce_shared(ctx, _t(xs, 2 * m, dev), "cuda_pairs")
@@ -388,8 +481,8 @@ def test_barrett_kernel_every_cluster_size(dev, m, batch):
 
 
 def test_barrett_kernel_2p18_modulus(dev):
-    """W = 32778 (a 2^18-bit modulus) now fits the kernel's staging; mu
-    from the host (the precompute's step kernels still refuse it)."""
+    """W = 32778 (a 2^18-bit modulus) fits the kernel's staging; mu from
+    the host, with lambda 0 and 1."""
     from repro_torch.core import modarith as MA
     m = 16384
     rnd = random.Random(18)
@@ -410,7 +503,8 @@ def test_barrett_kernel_2p18_modulus(dev):
 
 def test_staging_fits_the_paper_range(dev):
     """Two bytes per limb: the Barrett kernel stages a 2^18-bit modulus's
-    x, mu and v, and the product kernel modmul's a * b there."""
+    x, mu and v, the product kernel modmul's a * b and the step kernels
+    the precompute's full window W = 32778."""
     from repro_torch.kernels import digitmma as D
     from repro_torch.core import modarith as MA
     libs = build.build_all()
@@ -421,6 +515,9 @@ def test_staging_fits_the_paper_range(dev):
         assert bar(2 * m, m, w) <= D.DYNAMIC_SMEM_BYTES
         assert mul(m, m, 2 * m) <= D.DYNAMIC_SMEM_BYTES
     assert mul(2 * 16394, 16394, 2 * 16394) <= D.DYNAMIC_SMEM_BYTES
+    step = libs["step"].step_smem_bytes
+    for m in (2048, 4096, 8192, 16384):
+        assert step(MA.barrett_width(m)) <= D.DYNAMIC_SMEM_BYTES
 
 
 @pytest.mark.parametrize("m", [2048, 8192])

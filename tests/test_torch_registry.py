@@ -224,21 +224,24 @@ def test_products_under_each_impl(impl):
 
 
 def test_width_cap_dispatch():
-    """On the card cuda_fused and cuda_batched stage the 2W-limb Barrett
-    window in shared memory, so a 2^18-bit modulus (16384 limbs) raises
-    before any launch; cuda_pairs and blocked, and every impl on the
-    CPU, take it.  Nothing reroutes on its own."""
+    """Every impl takes a 2^18-bit modulus (16384 limbs) on the CPU.  On
+    the card the cap of cuda_fused and cuda_batched is read from the
+    kernel libraries (tests/test_torch_cuda.py); a Barrett window past
+    the digit product's column-sum contract raises before any library
+    is built or launched, and only for those two impls.  Nothing
+    reroutes on its own."""
+    from repro_torch.kernels import digitmma as D
     cuda = torch.device("cuda")
-    for impl in ("cuda_fused", "cuda_batched"):
-        MA.check_width(cuda, 8192, impl)          # 2^17 bits fit
-        with pytest.raises(ValueError, match="shared memory"):
-            MA.check_width(cuda, 16384, impl)
-    for impl in ("cuda_pairs", "blocked"):
-        MA.check_width(cuda, 16384, impl)
     for impl in K.IMPLS:
         MA.check_width("cpu", 16384, impl)
-    with pytest.raises(ValueError, match="shared memory"):
-        MA.check_width(cuda, 16384)               # the default, cuda_fused
+        MA.check_width("cpu", 32768, impl)
+    too_wide = D.MAX_LIMBS // 2                 # W = 2m + 10 > MAX_LIMBS
+    assert MA.barrett_width(too_wide) > D.MAX_LIMBS
+    for impl in ("cuda_fused", "cuda_batched", None):
+        with pytest.raises(ValueError, match="column-sum contract"):
+            MA.check_width(cuda, too_wide, impl)
+    for impl in ("cuda_pairs", "blocked"):
+        MA.check_width(cuda, too_wide, impl)
 
 
 # ---------------------------------------------------------------------------
