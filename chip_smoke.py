@@ -26,8 +26,17 @@ Phases, each of which raises on failure:
   4. the division path: divmod_batch at 2^15/2^16/2^17/2^18 bits
      (batches 256/128/64/32), every lane checked against Python divmod
      and on the card as q*v + r == u, with exactly 2*refine_iters(M) + 1
-     fused launches per division, then the division service answering
+     fused launches per division and the finalization on clusters of
+     cluster_size(batch) blocks, then the division service answering
      three requests (one split across buckets);
+  4b. a wide division: divmod_batch of 4 lanes at 30,000 limbs under
+     cuda_fused (past the ~29,000 limbs the CUDA-core finalization
+     staged), exact against Python, with divmod_launches(30000)
+     launches;
+  4c. the divmod width cap under cuda_fused and cuda_batched, found by
+     asking shinv.check_width (the kernel libraries' staging sizes):
+     one limb past the cuda_fused cap, divmod_batch and the division
+     service's constructor raise ValueError with no launch counted;
   5. the modular-arithmetic path: at 2^15/2^16/2^17-bit moduli the
      Barrett precompute (30/32/34 launches), reduce_shared and
      modmul_shared on 256/128/64 lanes (1 and 2 launches); at 2^15 bits
@@ -56,7 +65,8 @@ Phases, each of which raises on failure:
   6. timing with CUDA events (median of 5 after a warm-up): each kernel
      at each window it runs at (powdiff and update with their cluster
      size, limb products per second per SM and update's product columns
-     kept), divmod_batch per precision (under cuda_fused and
+     kept; correct with its cluster size and limb products per second
+     per SM over the clipped products), divmod_batch per precision (under cuda_fused and
      cuda_batched, with busy shares); per modulus size the precompute
      (also at 2^18 bits), reductions/s, modmuls/s, modexp (256-bit
      exponents) and exponentiations/s, the device's busy share, and the
@@ -68,19 +78,23 @@ Phases, each of which raises on failure:
      2^18 x 32 cells.  ptxas registers and spills go to the report.
 
 The kernel launch counters are set to 0 just before each of phases 4,
-5, 5b, 5c and 5d and read just after it.  Details go to
+4b, 4c, 5, 5b, 5c and 5d and read just after it.  Details go to
 chiprun_out/chip_smoke.json.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, times and bounds.  Exits non-zero
 without a result when there is no CUDA device or no src/repro_torch
-beside it.
+beside it.  Before it exits, pass or fail, it stops every process it
+started (the host pools' workers and multiprocessing's resource
+tracker).
 """
 
 from __future__ import annotations
 
 import json
 import multiprocessing
+import os
 import random
+import signal
 import statistics
 import subprocess
 import sys
@@ -124,6 +138,7 @@ GRID_TWINS = {"powdiff": "src/repro/kernels/fused.py:748",
 # kernels each main path must launch
 PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                                   "correct"),
+                "wide_division": ("powdiff", "update", "correct"),
                 "modarith_path": ("mul_batch", "powdiff", "update",
                                   "barrett"),
                 "frontend_path": ("mul_batch", "powdiff", "update",
@@ -133,6 +148,8 @@ PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                                    "correct")}
 # limbs at 2^15 and 2^18 bits, the sizes of the frontend and pair phases
 M15, M18 = 2 ** 15 // 16, 2 ** 18 // 16
+# the wide division's limbs, past the CUDA-core finalization's ~29,000
+WIDE_LIMBS = 30000
 # the frontend's requests at 2^15 bits (one split across buckets)
 DIV_REQUESTS = (10, 70, 5)
 MOD_REQUESTS = (("reduce", 70), ("modmul", 20), ("modexp", 12),
@@ -206,6 +223,24 @@ def _divmod(args):
     return divmod(u, v) if v else (0, u)
 
 
+def prec_of(x: int) -> int:
+    """Significant base-2^16 limbs of x."""
+    return -(-x.bit_length() // 16)
+
+
+def cut_products(a: int, b: int, n: int) -> int:
+    """Limb products i + j < n of an a-limb by a b-limb operand: the sum
+    over i < min(a, b) of min(max(a, b), max(0, n - i))."""
+    if not (a and b and n > 0):
+        return 0
+    a, b = min(a, b), max(a, b)
+    full = max(0, min(a, n - b + 1))
+    lo, hi = max(0, n - b + 1), min(a - 1, n - 1)
+    tri = (hi - lo + 1) * n - (lo + hi) * (hi - lo + 1) // 2 \
+        if hi >= lo else 0
+    return full * b + tri
+
+
 def host_map(fn, items) -> list:
     """fn over items on the host's cores (CPython's long division is
     quadratic: 0.7 s for one 256-bit exponent at a 2^15-bit modulus).
@@ -220,6 +255,41 @@ def host_map(fn, items) -> list:
 def pow_all(triples) -> list[int]:
     """pow(a, e, v) for each triple, on the host's cores."""
     return host_map(_pow, triples)
+
+
+def child_pids() -> set[int]:
+    """The live child processes of this process (any thread's)."""
+    out = set()
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/children") as f:
+                out |= {int(p) for p in f.read().split()}
+        except OSError:              # the thread ended meanwhile
+            pass
+    return out
+
+
+def stop_children() -> list[int]:
+    """Stop every process the script started before it exits.  The
+    pools join their workers as they close, but the spawn start method
+    also starts multiprocessing's resource tracker, which lives until
+    it is stopped or sees this process end, and so would outlive the
+    script.  Stop it and wait for it; kill and reap anything else still
+    running.  Returns the pids that had to be killed."""
+    for p in multiprocessing.active_children():
+        p.join(timeout=30)
+    from multiprocessing import resource_tracker
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+    killed = sorted(child_pids())
+    for pid in killed:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return killed
 
 
 def ptxas_report(path: Path) -> dict:
@@ -255,7 +325,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
-    Smoke(torch, build).run()
+    try:
+        Smoke(torch, build).run()
+    finally:
+        killed = stop_children()
+        if killed:
+            print(f"chip_smoke: killed leftover processes {killed}",
+                  file=sys.stderr)
     return 0
 
 
@@ -330,6 +406,7 @@ class Smoke:
         self.phase("pairs_vs_plain", self.check_pairs)
         launches = {}
         for name, fn in (("division_path", self.main_path),
+                         ("wide_division", self.wide_division),
                          ("modarith_path", self.modarith_path),
                          ("frontend_path", self.frontend_path),
                          ("pairs_path", self.pairs_path),
@@ -345,6 +422,8 @@ class Smoke:
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
             self.report.setdefault("path_launches", {})[name] = got
+            if name == "wide_division":
+                self.phase("width_cap", self.width_cap)
         self.phase("timing", self.timing)
         self.phase("timing_pairs", self.timing_pairs)
         self.phase("timing_modarith", self.timing_modarith)
@@ -531,6 +610,9 @@ class Smoke:
                 raise AssertionError(f"2^{bits.bit_length() - 1} bits: "
                                      f"launches {moved}, expected "
                                      f"{CM.divmod_launches(m)}")
+            self.expect(f"correct cluster at 2^{bits.bit_length() - 1} "
+                        f"bits", self.D.last_cluster["correct"],
+                        self.D.cluster_size(batch, self.sms))
             self.check_exact(us, vs, q, r)
             self.main_inputs[bits] = (u, v, q)
             log(f"divmod_batch 2^{bits.bit_length() - 1} bits, batch "
@@ -549,6 +631,74 @@ class Smoke:
             f"{st['rows_true']} rows in {st['rows_padded']} padded, exact")
         self.report["service"] = st
 
+    # -- phases 4b and 4c: a wide division and the width cap -----------------
+
+    def wide_division(self):
+        """divmod_batch of 4 lanes at WIDE_LIMBS limbs under cuda_fused:
+        divmod_launches(WIDE_LIMBS) launches, every lane against Python
+        divmod."""
+        m = WIDE_LIMBS
+        us, vs = operands(m, 4, m)
+        u, v = self.tensor(us, m), self.tensor(vs, m)
+        t0 = time.perf_counter()
+        (q, r), got = self.launched_by(lambda: self.S.divmod_batch(u, v))
+        dt = time.perf_counter() - t0
+        it = self.CM.refine_iters(m)
+        self.expect(f"divmod {m} limbs launches", got,
+                    {"powdiff": it, "update": it, "correct": 1})
+        self.expect(f"divmod {m} limbs launch total", sum(got.values()),
+                    self.CM.divmod_launches(m))
+        want = host_map(_divmod, zip(us, vs))
+        if list(zip(self.bi.batch_to_ints(q),
+                    self.bi.batch_to_ints(r))) != want:
+            raise AssertionError(f"divmod at {m} limbs inexact")
+        log(f"divmod_batch {m} limbs x 4 under cuda_fused: "
+            f"{sum(got.values())} launches ({dt:.2f} s), correct cluster "
+            f"{self.D.last_cluster['correct']}, every lane exact")
+        self.report["wide_division"] = dict(limbs=m, lanes=4, seconds=dt,
+                                            launches=got)
+
+    def width_cap(self):
+        """The widest division each staging impl takes on this card, by
+        bisecting shinv.check_width (it asks the kernel libraries); one
+        limb past the cuda_fused cap, divmod_batch and the division
+        service raise ValueError and no kernel is launched."""
+        S, torch = self.S, self.torch
+
+        def fits(m, impl):
+            try:
+                S.check_width(self.dev, m, impl)
+                return True
+            except ValueError:
+                return False
+
+        caps = {}
+        for impl in ("cuda_fused", "cuda_batched"):
+            lo, hi = 1, self.D.MAX_LIMBS     # fits at lo, not at hi
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                lo, hi = (mid, hi) if fits(mid, impl) else (lo, mid)
+            caps[impl] = lo
+        self.build.reset_launch_counts()
+        past = caps["cuda_fused"] + 1
+        wide = torch.ones(2, past, dtype=torch.int32, device=self.dev)
+        for what, fn in (
+                ("divmod_batch", lambda: S.divmod_batch(wide, wide)),
+                ("BigintDivisionService", lambda: self.Service(
+                    m_limbs=past, batch_buckets=(2,), device=self.dev))):
+            try:
+                fn()
+            except ValueError as exc:
+                log(f"{what} at {past} limbs: ValueError: {exc}")
+            else:
+                raise AssertionError(f"{what} took {past} limbs")
+        self.Service(m_limbs=past, batch_buckets=(2,), device=self.dev,
+                     impl="cuda_pairs")
+        self.expect("launches past the cap", self.build.launch_counts(), {})
+        log(f"divmod width caps (limbs): {caps}; past the cuda_fused cap "
+            f"nothing launched")
+        self.report["divmod_width_caps"] = caps
+
     # -- phase 5: timing -----------------------------------------------------
 
     @staticmethod
@@ -566,7 +716,7 @@ class Smoke:
         share."""
         F, K, S = self.F, self.K, self.S
         rows, agg = [], {}
-        self.step_full = {}
+        self.step_full, self.correct_cells = {}, {}
         for bits, batch in PRECISIONS:
             rec, first = self.record[bits], bits == PRECISIONS[0][0]
             items = []                    # (row, kernel, fn, plain, work)
@@ -609,7 +759,7 @@ class Smoke:
             items.append((tail, "correct",
                           lambda: F.correct_cuda(*cargs, h=c["h"]),
                           lambda: F.correct_reference(*cargs, h=c["h"]),
-                          (batch * (W * W + W * (W + 1) // 2),
+                          (self.correct_products(c),
                            4 * batch * (5 * W + 1))))
             items.append((tail, "mul_batch", lambda: K.mul_batch(q, v, m),
                           lambda: K.mul_plain(q, v, m),
@@ -620,6 +770,31 @@ class Smoke:
                 row[f"{name}_ms"] = self.time_ms(fn)
                 row[f"{name}_device_ms"] = dev[j] / 1e3 if dev else None
                 row[f"{name}_bound_ms"] = self.bound(*work)[0]
+                if name == "correct":
+                    row.update(correct_products=work[0],
+                               correct_cluster=self.D.last_cluster[name],
+                               correct_burst_ms=self.burst_ms(fn, n=10))
+                    ms = row["correct_device_ms"] or row["correct_burst_ms"]
+                    row["correct_rate_per_sm"] = self.rate(work[0], ms)
+                    self.correct_cells[bits] = dict(
+                        shape=f"2^{bits.bit_length() - 1} bits x {batch}",
+                        device_ms=row["correct_device_ms"],
+                        burst_ms=row["correct_burst_ms"],
+                        event_ms=row["correct_ms"],
+                        bound_ms=row["correct_bound_ms"],
+                        cluster=row["correct_cluster"],
+                        rate_per_sm=row["correct_rate_per_sm"],
+                        products=work[0])
+                    pt = self.report["ptxas"].get("correct_kernel", {})
+                    log(f"correct 2^{bits.bit_length() - 1} bits x {batch}: "
+                        f"cluster {row['correct_cluster']}, device "
+                        f"{row['correct_device_ms']} ms (burst "
+                        f"{row['correct_burst_ms']:.4f}), bound "
+                        f"{row['correct_bound_ms']:.4f} ms, "
+                        f"{row['correct_rate_per_sm']:.3g} limb products/s "
+                        f"per SM, ptxas {pt.get('registers')} registers, "
+                        f"{pt.get('spill_stores')}/{pt.get('spill_loads')} "
+                        f"spill bytes")
                 if name in ("powdiff", "update"):
                     row[f"{name}_products"] = work[0]
                     row[f"{name}_cluster"] = self.D.last_cluster[name]
@@ -651,7 +826,7 @@ class Smoke:
                     a["plain_ms"] += row[f"{name}_plain_ms"]
                     a["products"] += work[0]
                     a["bytes"] += work[1]
-                    if name in ("powdiff", "update"):
+                    if name in ("powdiff", "update", "correct"):
                         a["cluster"] = row[f"{name}_cluster"]
             for row in dict((id(it[0]), it[0]) for it in items).values():
                 if row is tail:
@@ -682,6 +857,8 @@ class Smoke:
             agg[name]["full_window"] = {
                 f"2^{b.bit_length() - 1}": d[name]
                 for b, d in self.step_full.items()}
+        agg["correct"]["cells"] = {f"2^{b.bit_length() - 1}": d
+                                   for b, d in self.correct_cells.items()}
         self.report["timing"] = rows
         self.agg = agg
 
@@ -704,16 +881,30 @@ class Smoke:
             if not (on and a and b):
                 continue
             n = min(a + b, max(o, 0) + win, 2 * win)
-            a, b = min(a, b), max(a, b)
-            # sum over i < a of min(b, max(0, n - i))
-            full = max(0, min(a, n - b + 1))
-            lo, hi = max(0, n - b + 1), min(a - 1, n - 1)
-            tri = (hi - lo + 1) * n - (lo + hi) * (hi - lo + 1) // 2 \
-                if hi >= lo else 0
-            up += full * b + tri
+            up += cut_products(a, b, n)
             cols += a + b
             kept += n
         return pd, up, kept / cols if cols else None
+
+    def correct_products(self, c):
+        """Limb products one correct launch needs on these inputs, on each
+        lane with v != 0: u * si over prec(u) x prec(si) limbs below
+        column min(2W, h + W), then q * v below limb W over prec(q) x
+        prec(v) limbs, q = floor(u * si / B^h) cut to W (the kernel's q,
+        before the correction)."""
+        ints = self.bi.batch_to_ints
+        W = c["u"].shape[1]
+        total = 0
+        for u, v, si, h in zip(ints(c["u"]), ints(c["v"]), ints(c["si"]),
+                               c["h"].tolist()):
+            if v == 0:
+                continue
+            pu, ps, pv = prec_of(u), prec_of(si), prec_of(v)
+            q = ((u * si) >> (16 * h)) % (1 << (16 * W))
+            pq = prec_of(q)
+            total += cut_products(pu, ps, min(pu + ps, 2 * W, h + W))
+            total += cut_products(pq, pv, min(pq + pv, W))
+        return total
 
     def rate(self, products, device_ms):
         """Limb products per second per SM over a kernel's device time."""
@@ -1567,7 +1758,8 @@ class Smoke:
                 e["cluster"] = a["cluster"]
             if name in GRID_TWINS:
                 e["also_replaces"] = GRID_TWINS[name]
-            for extra in ("at_2p18", "call_device_ms", "full_window"):
+            for extra in ("at_2p18", "call_device_ms", "full_window",
+                          "cells"):
                 if extra in a:
                     e[extra] = a[extra]
             out.append(e)

@@ -49,7 +49,7 @@ import torch
 from .bigint import DTYPE, LOG_BASE, limbs_from_numpy, one_hot_pow
 from . import arith as A
 from . import shinv as S
-from repro_torch.kernels import build, digitmma as D, ops as K
+from repro_torch.kernels import digitmma as D, ops as K
 from repro_torch.obs import costmodel as CM
 
 MU_GUARD = 2    # guard digits above 2m in h (keeps qhat error in {-1,0,+1})
@@ -92,34 +92,22 @@ def context_from_numpy(v, mu, k, device) -> BarrettContext:
 
 def check_width(device, m: int, impl: str | None = None) -> None:
     """Raise ValueError where impl's kernels cannot run an m-limb modulus
-    on `device`, before any launch.  On CUDA, cuda_fused (the step,
-    Barrett and product kernels) and cuda_batched (the product kernel)
-    stage their operands in shared memory: the widths they stage are
-    asked of the kernel libraries, and no product operand may pass the
-    digit product's column-sum contract (`digitmma.MAX_LIMBS`).
-    cuda_pairs, blocked and the CPU have no cap."""
-    impl = K.check_impl(impl)
-    if (torch.device(device).type != "cuda"
-            or impl not in ("cuda_fused", "cuda_batched")):
-        return
+    on `device`, before any launch (`digitmma.check_staging`): on CUDA,
+    cuda_fused stages the precompute's step kernels at the Barrett window
+    W, the Barrett kernel and modmul's a * b, cuda_batched the product
+    kernel at W x W -> 2W.  cuda_pairs, blocked and the CPU have no
+    cap."""
     width = barrett_width(m)
-    if width > D.MAX_LIMBS:
-        raise ValueError(
-            f"a {m}-limb modulus needs a {width}-limb Barrett window, past "
-            f"the {impl} kernels' {D.MAX_LIMBS}-limb column-sum contract "
-            f"(impl='cuda_pairs' has no such cap)")
-    libs = build.build_all()
-    if impl == "cuda_fused":       # precompute steps, reduce, modmul's a*b
-        need = max(libs["step"].step_smem_bytes(width),
-                   libs["barrett"].barrett_smem_bytes(2 * m, m, width),
-                   libs["mul"].mul_batch_smem_bytes(m, m, 2 * m))
-    else:                          # every product is at most W x W -> 2W
-        need = libs["mul"].mul_batch_smem_bytes(width, width, 2 * width)
-    if need > D.DYNAMIC_SMEM_BYTES:
-        raise ValueError(
-            f"a {m}-limb modulus (Barrett window {width} limbs): the {impl} "
-            f"kernels stage {need} bytes, more than shared memory holds "
-            f"(impl='cuda_pairs' has no such cap)")
+
+    def need(libs, impl):
+        if impl == "cuda_fused":   # precompute steps, reduce, modmul's a*b
+            return max(libs["step"].step_smem_bytes(width),
+                       libs["barrett"].barrett_smem_bytes(2 * m, m, width),
+                       libs["mul"].mul_batch_smem_bytes(m, m, 2 * m))
+        # every product is at most W x W -> 2W
+        return libs["mul"].mul_batch_smem_bytes(width, width, 2 * width)
+
+    D.check_staging(device, impl, width, f"a {m}-limb modulus", need)
 
 
 def barrett_precompute(v: torch.Tensor,

@@ -15,6 +15,14 @@ bit for bit.
 
 Zero-divisor contract (as in the JAX package): divmod(u, 0) = (0, u)
 and shinv(0, h) = 0.
+
+Width cap on the card: under cuda_fused and cuda_batched the kernels
+stage their operands in shared memory at the working width W = M + PAD,
+so `divmod_batch` asks the kernel libraries first (`check_width`) and
+raises ValueError before any launch past 38,440 limbs under cuda_fused
+(the finalization kernel's u, si and v) and 57,744 under cuda_batched
+(u * shinv); cuda_pairs, blocked and the CPU have no cap, and nothing
+reroutes on its own.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from .bigint import DTYPE, LOG_BASE, MASK, one_hot_pow
 from . import arith as A
-from repro_torch.kernels import ops as K
+from repro_torch.kernels import digitmma as D, ops as K
 from repro_torch.obs.costmodel import refine_iters, refine_window
 
 GUARD = 2   # guard digits g (paper: Refine line 16)
@@ -110,16 +118,36 @@ def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
     return torch.where(zero, torch.zeros_like(w), w)
 
 
+def check_width(device, m: int, impl: str | None = None) -> None:
+    """Raise ValueError where impl's kernels cannot run an m-limb division
+    on `device`, before any launch (`digitmma.check_staging`): on CUDA,
+    cuda_fused stages the step kernels at the last Refine window, which
+    is the full working width W = m + PAD, and the finalization kernel
+    at W; cuda_batched the product kernel at W x W -> 2W (u * shinv).
+    cuda_pairs, blocked and the CPU have no cap."""
+    width = m + PAD
+
+    def need(libs, impl):
+        if impl == "cuda_fused":
+            return max(libs["step"].step_smem_bytes(width),
+                       libs["correct"].correct_smem_bytes(width))
+        return libs["mul"].mul_batch_smem_bytes(width, width, 2 * width)
+
+    D.check_staging(device, impl, width, f"a division of {m} limbs", need)
+
+
 def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True,
                  impl: str | None = None):
     """Batched division (q, r) with u = q * v + r, 0 <= r < v; u, v:
     (batch, M) int32 limbs on one device, which the computation follows
     (CUDA: `costmodel.divmod_launches(M, impl)` kernel launches,
-    2 * refine_iters(M) + 1 under cuda_fused).  divmod(u, 0) = (0, u)."""
+    2 * refine_iters(M) + 1 under cuda_fused, after `check_width`).
+    divmod(u, 0) = (0, u)."""
     if u.shape != v.shape or u.ndim != 2:
         raise ValueError(f"expected equal (batch, M) operands, got "
                          f"{tuple(u.shape)} and {tuple(v.shape)}")
     m_limbs = u.shape[1]
+    check_width(u.device, m_limbs, impl)
     pad = (0, PAD)
     uw = torch.nn.functional.pad(u.to(DTYPE), pad).contiguous()
     vw = torch.nn.functional.pad(v.to(DTYPE), pad).contiguous()

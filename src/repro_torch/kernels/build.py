@@ -105,8 +105,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         "update_launch": [P, P, P, P, P, P, P, P, I, I, I, P, P],
         "step_scratch_bytes": [I],
         "step_smem_bytes": [I],
-        "correct_launch": [P, P, P, P, P, P, P, I, I, P],
+        "correct_launch": [P, P, P, P, P, P, P, I, I, P, P],
         "correct_scratch_bytes": [I],
+        "correct_smem_bytes": [I],
         "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P, P],
         "barrett_scratch_bytes": [I],
         "barrett_smem_bytes": [I, I, I],
@@ -173,9 +174,9 @@ def check(err: int, what: str) -> None:
         raise LaunchError(what, err)
 
 
-# Dynamic shared memory a block may use on Hopper.  The correct and pair
-# kernels stage their product operands there as 32-bit words, the
-# product, step and Barrett kernels as 16-bit limbs (csrc/digitmma.cuh).
+# Shared memory a block may use on Hopper.  The product, step,
+# finalization and Barrett kernels stage their operands there as 16-bit
+# limbs (csrc/digitmma.cuh); the pair kernel two tiles of 32-bit words.
 SMEM_BYTES = 227 * 1024
 
 

@@ -1,6 +1,6 @@
 // Digit products on the int8 tensor cores, with an instance spread over
-// a thread-block cluster: the shared routines of mul.cu, barrett.cu and
-// step.cu.
+// a thread-block cluster: the shared routines of mul.cu, step.cu,
+// correct.cu and barrett.cu.
 //
 // Staging, two bytes per limb in shared memory.  The operands arrive as
 // int32 limbs (< 2^16) and are packed to 16-bit limbs, which read as
@@ -35,6 +35,7 @@
 
 #include <climits>
 #include <map>
+#include <mutex>
 #include <tuple>
 #include <cooperative_groups.h>
 
@@ -417,8 +418,10 @@ __device__ int cluster_reduce(int x, Op op, int ident, Block& st,
 }
 
 // Column sums col[0, n_cols) (zero above; each < 2^48) -> canonical limbs
-// of positions [0, n), mod B^n, through store(i, limb): limbs::resolve's
-// three-piece split, then one cluster-wide carry chain.  The caller
+// of positions [0, n), mod B^n, through store(i, limb): each sum splits
+// into three 16-bit pieces added at limb offsets 0, 1 and 2 (a piece sum
+// < 3 * 2^16), one local pass leaves digits <= 2^16 + 1 whose carries
+// are 0 or 1, and one cluster-wide carry chain finishes.  The caller
 // makes col visible to the cluster (cluster.sync()) first.  e is global
 // scratch of n words.
 template <class S>

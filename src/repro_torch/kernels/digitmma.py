@@ -1,8 +1,9 @@
 """The digit-GEMM schedule of the product kernels (`csrc/digitmma.cuh`),
 its host-side cluster plan, and a plain emulation of it for the tests.
 
-The product, Barrett and step kernels (`mul_batch_kernel`,
-`barrett_kernel`, `powdiff_kernel`, `update_kernel`) read their 16-bit
+The product, step, finalization and Barrett kernels
+(`mul_batch_kernel`, `powdiff_kernel`, `update_kernel`,
+`correct_kernel`, `barrett_kernel`) read their 16-bit
 limbs as 8-bit digits and compute the digit-column sums of a product
 as one matrix product on the int8 tensor cores
 (`mma.sync.m16n8k32.s32.u8.u8.s32`).  With N = 8 columns per row,
@@ -27,7 +28,9 @@ blocks; block `rank` takes a contiguous range of row tiles, split by
 The wrappers ask only `cluster_size(batch, device_sms(device))`; the
 kernels split rows themselves (`tile_scan` in csrc/digitmma.cuh) and
 size their shared-memory staging (`mul_batch_smem_bytes`,
-`barrett_smem_bytes`, `step_smem_bytes` in the libraries).  `cluster_plan` (the split as
+`step_smem_bytes`, `correct_smem_bytes`, `barrett_smem_bytes` in the
+libraries), which `check_staging` holds against shared memory before a
+division or a modulus launches anything.  `cluster_plan` (the split as
 row ranges) and `digit_columns_plain` (the schedule's CPU emulation: the
 same windows, clipping, flushes, groups and cluster split, with int32
 tile sums whose bound is asserted) are test-only: nothing on the main
@@ -40,8 +43,9 @@ import functools
 
 import torch
 
+from . import build
 from .build import SMEM_BYTES
-from .ops import resolve_columns
+from .ops import check_impl, resolve_columns
 
 N = 8                 # columns of C per row (the n of m16n8k32)
 TILE_ROWS = 16        # rows of a tile (the m)
@@ -56,7 +60,7 @@ MAX_CLUSTER = 8       # the portable cluster size limit
 DYNAMIC_SMEM_BYTES = SMEM_BYTES - 1024
 # the s32 sums stay exact up to this many u8 x u8 terms
 S32_TERMS = (2 ** 31 - 1) // (255 * 255)
-# limb columns stay < 2^48 (limbs::resolve) up to this operand width
+# limb columns stay < 2^48 (cluster_resolve) up to this operand width
 MAX_LIMBS = 1 << 16
 
 assert K_CHUNK <= S32_TERMS
@@ -71,6 +75,33 @@ def check_contract(na: int, nb: int) -> None:
     if min(na, nb) > MAX_LIMBS:
         raise ValueError(f"{na} x {nb} limbs: past the digit product's "
                          f"{MAX_LIMBS}-limb column-sum contract")
+
+
+def check_staging(device, impl: str | None, width: int, what: str,
+                  need) -> None:
+    """Raise ValueError, before any launch, where impl's kernels cannot
+    run `what` at a working width of `width` limbs on `device`.  Only
+    cuda_fused and cuda_batched stage their operands in shared memory:
+    on CUDA a width past the column-sum contract (MAX_LIMBS) raises
+    before any library is built, then `need(libs, impl)`, the staging
+    bytes the kernel libraries report, must fit DYNAMIC_SMEM_BYTES.
+    cuda_pairs, blocked and the CPU have no cap; nothing reroutes on
+    its own."""
+    impl = check_impl(impl)
+    if (torch.device(device).type != "cuda"
+            or impl not in ("cuda_fused", "cuda_batched")):
+        return
+    if width > MAX_LIMBS:
+        raise ValueError(
+            f"{what} needs a {width}-limb working width, past the {impl} "
+            f"kernels' {MAX_LIMBS}-limb column-sum contract "
+            f"(impl='cuda_pairs' has no such cap)")
+    n = need(build.build_all(), impl)
+    if n > DYNAMIC_SMEM_BYTES:
+        raise ValueError(
+            f"{what} (working width {width} limbs): the {impl} kernels "
+            f"stage {n} bytes, more than shared memory holds "
+            f"(impl='cuda_pairs' has no such cap)")
 
 
 def floor4(k: int) -> int:

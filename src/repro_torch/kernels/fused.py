@@ -11,11 +11,13 @@ one and a Barrett reduction one, as in the JAX package
 
 The TPU's two kernel generations computed the same functions (they
 differed only in how the product fit VMEM); on Hopper one kernel per
-stage covers every width.  powdiff, update and barrett compute their
-products as int8 digit GEMMs with an instance spread over a cluster
+stage covers every width.  All four compute their products as int8
+digit GEMMs with an instance spread over a cluster
 (`csrc/digitmma.cuh`, `kernels/digitmma.py`); their wrappers ask the
 library whether a width's staging fits shared memory
-(`step_smem_bytes`, `barrett_smem_bytes`).  `powdiff_reference`,
+(`step_smem_bytes`, `correct_smem_bytes`, `barrett_smem_bytes`), and
+record the cluster size each launch used in `digitmma.last_cluster`.
+`powdiff_reference`,
 `update_reference`, `step_reference`, `correct_reference` and
 `barrett_reference` are the plain PyTorch versions (the JAX package's
 `_powdiff_reference`, `step_reference`, `correct_reference` and
@@ -34,7 +36,7 @@ import torch
 from repro_torch.core import arith as A
 from repro_torch.core.bigint import DTYPE, one_hot_pow
 from . import build, digitmma as D
-from .build import SMEM_BYTES, check_limbs, stream_ptr
+from .build import check_limbs, stream_ptr
 from .ops import mul_plain
 
 
@@ -188,15 +190,6 @@ def _scalars(batch: int, device, **cols) -> dict[str, torch.Tensor]:
     return out
 
 
-def _operands(full_w: int, batch: int, staged: int, **arrs) -> None:
-    """Check the limb operands; `staged` 32-bit limbs go to shared
-    memory (the finalization kernel)."""
-    if 4 * staged > SMEM_BYTES:
-        raise ValueError(f"{staged} staged limbs exceed shared memory")
-    for name, a in arrs.items():
-        check_limbs(name, a, (batch, full_w))
-
-
 def _step_lib(win: int, batch: int, full_w: int, **arrs):
     """Check a step launch's limb operands and window; returns the step
     library once it says the window's staging fits shared memory."""
@@ -271,22 +264,31 @@ def step_cuda(v, w, *, h, m, l, s, active, g: int, win: int):
 
 
 def correct_cuda(u, v, si, *, h):
-    """Kernel of `correct_reference`: (q, r) in one launch."""
+    """Kernel of `correct_reference`: (q, r) in one launch, an instance
+    spread over a cluster of `digitmma.cluster_size(batch, sms)`
+    blocks."""
     batch, full_w = u.shape
-    _operands(full_w, batch, 2 * full_w, u=u, v=v, si=si)
+    for name, a in (("u", u), ("v", v), ("si", si)):
+        check_limbs(name, a, (batch, full_w))
+    D.check_contract(full_w, full_w)
+    lib = build.lib("correct")
+    if lib.correct_smem_bytes(full_w) > D.DYNAMIC_SMEM_BYTES:
+        raise ValueError(f"a {full_w}-limb finalization exceeds shared "
+                         f"memory")
     sc = _scalars(batch, u.device, h=h)
     q = torch.empty_like(u)
     r = torch.empty_like(u)
     if batch:
-        lib = build.lib("correct")
         scratch = torch.empty(batch * lib.correct_scratch_bytes(full_w),
                               dtype=torch.uint8, device=u.device)
+        cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(u.device)))
         err = lib.correct_launch(
             u.data_ptr(), v.data_ptr(), si.data_ptr(), sc["h"].data_ptr(),
             q.data_ptr(), r.data_ptr(), scratch.data_ptr(), batch, full_w,
-            stream_ptr(u))
+            ctypes.byref(cluster), stream_ptr(u))
         build.check(err, "correct kernel")
         build.count("correct")
+        D.last_cluster["correct"] = cluster.value
     return q, r
 
 

@@ -34,7 +34,7 @@ far inside float64's 2^53 exact-integer range.  CUDA has no integer
 matrix product, so the per-diagonal sums come from float64
 block-Toeplitz products (exact, since every partial sum is an integer
 < 2^53); carries are resolved in int64 exactly as the kernels resolve
-them (`csrc/limbs.cuh:resolve`).
+them (`csrc/digitmma.cuh:cluster_resolve`).
 """
 
 from __future__ import annotations

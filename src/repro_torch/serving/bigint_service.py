@@ -33,7 +33,9 @@ class BigintDivisionService:
     impl:   the registry impl (`kernels/ops.py`; None = cuda_fused);
             `divide(..., impl=)` overrides it per call
     device: where the work runs ("cuda" needs a card; "cpu" runs the
-            plain versions)
+            plain versions); on the card a width past the impl's
+            shared-memory staging raises ValueError here
+            (`core.shinv.check_width`)
     faults: an optional serving/faults.FaultInjector
     """
 
@@ -46,7 +48,7 @@ class BigintDivisionService:
                                "a CUDA device; pass device='cpu' to run "
                                "the plain versions on the CPU")
         self.impl = impl
-        K.check_impl(impl)
+        S.check_width(self.device, m_limbs, impl)   # before any request
         self.batcher = BT.Batcher(batch_buckets)
         self.telemetry = BT.ServiceMetrics()
         self._plans = BT.PlanCache()

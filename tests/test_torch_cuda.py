@@ -168,6 +168,125 @@ def test_correct_kernel_matches_plain(dev, w):
     assert torch.equal(qk, qp) and torch.equal(rk, rp)
 
 
+def _correct_operands(batch, m, seed, dev):
+    """Finalization operands at W = m + PAD, as divmod_batch hands them
+    over: u and v of m limbs (lane 0 all-0xFFFF, lane 1 v = 0, lane 2 a
+    one-limb v, lane 3 u < v, lane 4 u = 0; the rest u = k v or k v - 1
+    for a v of random length), h = prec(u) and si = floor(B^h / v) +
+    lambda with lambda = -1, 0, +1 by lane, so that both corrections
+    run.  Returns the tensors, the ints and each lane's lambda."""
+    rnd = random.Random(seed)
+    W = m + S.PAD
+    us, vs, lams = [], [], []
+    for i in range(batch):
+        v = rnd.getrandbits(16 * rnd.randint(1, m)) | 1
+        k = max(1, (B ** m - 1) // v - rnd.randint(0, 3))
+        us.append(k * v - (i // 3) % 2)
+        vs.append(v)
+        lams.append(i % 3 - 1)
+    edges = [(B ** m - 1, B ** (m // 2) - 1), (rnd.getrandbits(16 * m), 0),
+             (rnd.getrandbits(16 * m), 0xFFFF), (12345, B ** m - 1),
+             (0, rnd.getrandbits(16 * m) | 1)]
+    for i, (uu, vv) in enumerate(edges[:batch]):
+        us[i], vs[i] = uu, vv
+    hs = [-(-x.bit_length() // 16) for x in us]
+    sis = [max(0, B ** h // y + lam) if y else rnd.getrandbits(16 * W)
+           for h, y, lam in zip(hs, vs, lams)]
+    t = dict(u=_t(us, W, dev), v=_t(vs, W, dev), si=_t(sis, W, dev),
+             h=torch.tensor(hs, dtype=torch.int32, device=dev))
+    return t, us, vs, lams
+
+
+def _check_correct(t, us, vs, lams):
+    """correct_cuda against correct_reference bit for bit, and against
+    Python divmod on every lane whose si is a valid shifted inverse
+    (lambda 0 or 1; u < B^m keeps v * (q + 1) inside W limbs)."""
+    qk, rk = F.correct_cuda(t["u"], t["v"], t["si"], h=t["h"])
+    torch.cuda.synchronize()
+    qp, rp = F.correct_reference(t["u"], t["v"], t["si"], h=t["h"])
+    assert torch.equal(qk, qp) and torch.equal(rk, rp)
+    for x, y, lam, qq, rr in zip(us, vs, lams, bi.batch_to_ints(qk),
+                                 bi.batch_to_ints(rk)):
+        if lam >= 0 or y == 0:
+            assert (qq, rr) == (divmod(x, y) if y else (0, x))
+
+
+@pytest.mark.parametrize("batch", [1, 16, 32, 64, 100, 132, 256])
+def test_correct_kernel_every_cluster_size(dev, batch):
+    """The finalization kernel at clusters of 8, 8, 8, 4, 2, 1 and 1
+    blocks (132 SMs), at the 2^15-bit divmod's W = 2056 and at W = 528."""
+    from repro_torch.kernels import digitmma as D
+    for m in (520, 2048):
+        _check_correct(*_correct_operands(batch, m, batch + m, dev))
+        assert D.last_cluster["correct"] == D.cluster_size(
+            batch, D.device_sms(dev))
+
+
+def test_correct_kernel_2p18(dev):
+    """W = 16392 (2^18 bits x 32 lanes, cluster 8 on 132 SMs), si around
+    the true shifted inverse: lambda -1, 0, +1."""
+    from repro_torch.kernels import digitmma as D
+    _check_correct(*_correct_operands(32, 16384, 18, dev))
+    assert D.last_cluster["correct"] == D.cluster_size(32, D.device_sms(dev))
+
+
+def test_divmod_past_the_old_finalization_cap(dev):
+    """A 30,000-limb division under cuda_fused, past the ~29,000 limbs
+    the CUDA-core finalization staged: exact against Python, with
+    costmodel.divmod_launches(30000) launches."""
+    m = 30000
+    rnd = random.Random(m)
+    us = [B ** m - 1, rnd.getrandbits(16 * m), rnd.getrandbits(16 * m)]
+    vs = [B ** (m // 2) - 1, rnd.getrandbits(16 * 5) | 1,
+          rnd.getrandbits(16 * (m - 1000)) | 1]
+    build.build_all()
+    build.reset_launch_counts()
+    q, r = S.divmod_batch(_t(us, m, dev), _t(vs, m, dev))
+    torch.cuda.synchronize()
+    it = CM.refine_iters(m)
+    assert build.launch_counts() == {"powdiff": it, "update": it,
+                                     "correct": 1}
+    assert sum(build.launch_counts().values()) == CM.divmod_launches(m)
+    for x, y, qq, rr in zip(us, vs, bi.batch_to_ints(q),
+                            bi.batch_to_ints(r)):
+        assert (qq, rr) == divmod(x, y)
+
+
+def test_divmod_width_cap(dev):
+    """The cuda_fused divmod cap the libraries set (the finalization
+    kernel's staging): 38,440 limbs run exact, 38,441 raise ValueError
+    in divmod_batch and in the division service's constructor before any
+    launch; cuda_batched and cuda_pairs take that width, and past the
+    column-sum contract cuda_fused and cuda_batched raise."""
+    from repro_torch.serving.bigint_service import BigintDivisionService
+    cap = 38440
+    rnd = random.Random(cap)
+    us = [rnd.getrandbits(16 * cap), B ** cap - 1]
+    vs = [rnd.getrandbits(16 * 3) | 1, 0]
+    build.build_all()
+    build.reset_launch_counts()
+    q, r = S.divmod_batch(_t(us, cap, dev), _t(vs, cap, dev))
+    torch.cuda.synchronize()
+    assert sum(build.launch_counts().values()) == CM.divmod_launches(cap)
+    assert list(zip(bi.batch_to_ints(q), bi.batch_to_ints(r))) == [
+        divmod(us[0], vs[0]), (0, us[1])]
+    build.reset_launch_counts()
+    wide = torch.ones(2, cap + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        S.divmod_batch(wide, wide)
+    with pytest.raises(ValueError, match="shared memory"):
+        BigintDivisionService(m_limbs=cap + 1, batch_buckets=(2,),
+                              device=dev)
+    for impl in ("cuda_batched", "cuda_pairs"):
+        S.check_width(dev, cap + 1, impl)
+        BigintDivisionService(m_limbs=cap + 1, batch_buckets=(2,),
+                              device=dev, impl=impl)
+    for impl in ("cuda_fused", "cuda_batched"):
+        with pytest.raises(ValueError, match="column-sum contract"):
+            S.check_width(dev, 65536, impl)
+    assert build.launch_counts() == {}
+
+
 @pytest.mark.parametrize("m", [4, 26, 130])
 def test_divmod_on_card_exact_with_launch_count(dev, m):
     rnd = random.Random(m)
