@@ -21,8 +21,12 @@ Phases, each of which raises on failure:
      (precompute steps, reduce, modmul and a short modexp at 2^15/2^16/
      2^17-bit moduli); then the pair kernel (mul_pairs, mulmod_pairs) at
      the q*v shapes of the 2^15 x 256 and 2^18 x 32 division cells,
-     divmod's u*shinv at 2^18 x 32, the 2^18-bit modulus's x*mu and the
-     close product at l_max around tile edges;
+     divmod's u*shinv at 2^18 x 32, the 2^18-bit modulus's x*mu, the
+     close product at l_max around the plain product's and the kernel's
+     column-tile edges, and its in-launch carry chain: all-0xFFFF
+     operands (every column tile waits for its carry-in), lanes just
+     below and just above a tile's carry threshold, batches 1 and 256,
+     and one 2^16 x 2^16-limb product;
   4. the division path: divmod_batch at 2^15/2^16/2^17/2^18 bits
      (batches 256/128/64/32), every lane checked against Python divmod
      and on the card as q*v + r == u, with exactly 2*refine_iters(M) + 1
@@ -75,7 +79,11 @@ Phases, each of which raises on failure:
      modmul's a*b shape) per launch against their bounds, with the
      cluster size each used and its limb products per second per SM;
      mul_pairs beside mul_batch at the q*v shapes of the 2^15 x 256 and
-     2^18 x 32 cells.  ptxas registers and spills go to the report.
+     2^18 x 32 cells, with its limb products per second per SM, the
+     whole call's busy share, divmod under cuda_pairs against cuda_fused
+     in turns, and its library yardstick: the float64 grouped conv1d of
+     its column sums, checked exact.  ptxas registers and spills go to
+     the report.
 
 The kernel launch counters are set to 0 just before each of phases 4,
 4b, 4c, 5, 5b, 5c and 5d and read just after it.  Details go to
@@ -1402,16 +1410,59 @@ class Smoke:
             log(f"mul_pairs {what} ({wu} x {wv} -> {wo} limbs): exact")
         u = self.limbs(64, M15, 30, zero_lane=True)
         v = self.limbs(64, M15, 31)
-        t = self.K.BLOCK_T
-        l_maxes = sorted({1, t - 1, t, t + 1, M15 // 2 - 1, M15 // 2,
-                          M15 // 2 + 1, M15 - 1, M15} & set(range(1, M15 + 1)))
+        t, tc = self.K.BLOCK_T, bm.PAIRS_TC
+        l_maxes = sorted({1, t - 1, t, t + 1, tc - 1, tc, tc + 1,
+                          M15 - 1, M15} & set(range(1, M15 + 1)))
         for l_max in l_maxes:
             got = bm.mulmod_pairs(u, v, l_max, M15)
             self.compare("mul_pairs", (got,), (bm.mulmod_pairs_reference(
                 u, v, l_max, M15),))
             self.check_lanes(u, v, got, B ** l_max)
         log(f"mulmod_pairs {M15} x {M15} limbs, l_max {l_maxes}: exact")
+        self.check_pairs_carries()
         self.report["checked"] = dict(self.checked)
+
+    def check_pairs_carries(self):
+        """The pair kernel's in-launch carry chain, bit for bit against the
+        plain version and Python ints: all-0xFFFF operands (every column
+        tile above the first waits for its carry-in), lanes whose column
+        tile 1 sits just below B^Tc after its carry-in and just above it,
+        l_max at the 1,024-limb column-tile edges, batches 1 and 256, and
+        one product of 2^16 x 2^16 limbs (the column-sum contract's width:
+        no shared-memory cap)."""
+        bm, B, tc = self.bigmul, 1 << 16, self.bigmul.PAIRS_TC
+        ints = self.bi.batch_to_ints
+
+        def pair(us, vs, wu, wv, l_max, wo, what):
+            u, v = self.tensor(us, wu), self.tensor(vs, wv)
+            got = bm.mulmod_pairs(u, v, l_max, wo)
+            self.compare("mul_pairs", (got,), (bm.mulmod_pairs_reference(
+                u, v, l_max, wo),))
+            if ints(got) != [x * y % B ** min(l_max, wo)
+                             for x, y in zip(us, vs)]:
+                raise AssertionError(f"pair product inexact: {what}")
+            log(f"mul_pairs {what} ({wu} x {wv} -> {min(l_max, wo)} "
+                f"limbs): exact")
+
+        x = B ** M18 - 1
+        pair([x, x], [x, x], M18, M18, M18, M18,
+             "all-0xFFFF, 16 column tiles waiting in turn")
+        us, vs = bm.threshold_lanes(tc, 1, 3200, 300, 17)
+        wu = max(prec_of(y) for y in us)
+        for l_max in (tc - 1, tc, tc + 1, 2 * tc - 1, 2 * tc, 2 * tc + 1,
+                      3200):
+            pair(us, vs, wu, 300, l_max, 3300,
+                 f"tile 1 just below / above B^{tc} after its carry-in, "
+                 f"l_max {l_max}")
+        rnd = random.Random(1)
+        for batch in (1, 256):
+            xs = [rnd.getrandbits(16 * M15) for _ in range(batch)]
+            ys = [rnd.getrandbits(16 * M15) for _ in range(batch)]
+            xs[0] = ys[0] = B ** M15 - 1
+            pair(xs, ys, M15, M15, M15, M15, f"batch {batch}")
+        w = bm.PAIRS_MAX_LIMBS
+        pair([rnd.getrandbits(16 * w)], [B ** w - 1], w, w, 2 * w, 2 * w,
+             "2^16 x 2^16 limbs, batch 1")
 
     # -- the serving frontend ------------------------------------------------
 
@@ -1659,21 +1710,62 @@ class Smoke:
 
     # -- phase 6c: the pair kernel's time ------------------------------------
 
+    def conv_columns(self, u, v, m):
+        """The library yardstick of the pair product: its column sums
+        sum_i u[b, i] v[b, k - i], k < m, as ONE float64 grouped conv1d
+        (one group per lane; exact when the algorithm sums directly, as
+        every partial sum is an integer < 2^48).  Timed, never used by
+        the port."""
+        F, f64 = self.torch.nn.functional, self.torch.float64
+        batch, wv = v.shape
+        x = F.pad(u.to(f64)[None], (wv - 1, max(0, m - u.shape[1])))
+        return F.conv1d(x[..., :wv - 1 + m], v.to(f64).flip(-1)[:, None],
+                        groups=batch)[0]
+
+    def library_pairs(self, q, v, m, got):
+        """Time the conv1d yardstick at q*v and check it: its sums against
+        the plain version's exact column sums, and their resolution
+        against the kernel's limbs.  Where cuDNN's algorithm is inexact,
+        time it again with cuDNN off (PyTorch's own convolution)."""
+        torch, K = self.torch, self.K
+        cols = K.pair_columns(K.pair_sums_plain(q, v, K.tiles_for(m)), m)
+        out = {}
+        for cudnn in (True, False):
+            with torch.backends.cudnn.flags(enabled=cudnn):
+                c = self.conv_columns(q, v, m)
+                exact = bool(torch.equal(c, c.round())) and torch.equal(
+                    c.to(torch.int64), cols)
+                ms = self.time_ms(lambda: self.conv_columns(q, v, m),
+                                  runs=3)
+            out[f"cudnn_{cudnn}"] = dict(ms=ms, exact=exact)
+            if exact:
+                if not torch.equal(self.K.resolve_columns(
+                        c.to(torch.int64)), got):
+                    raise AssertionError("the exact column sums resolve to "
+                                         "other limbs than the pair "
+                                         "kernel's")
+                out.update(ms=ms, exact=True, cudnn=cudnn)
+                return out
+        out.update(ms=None, exact=False, cudnn=None)
+        return out
+
     def timing_pairs(self):
         """mul_pairs at the q*v shapes of the 2^15 x 256 and 2^18 x 32
         division cells beside mul_batch at the same shapes: CUDA events
-        around each call (mul_pairs' overlap-add and carry resolution in
-        torch included), the pair kernel's and mul_batch's device times
+        around each call, the pair kernel's and mul_batch's device times
         (torch.profiler), the whole mul_pairs call's device time and busy
-        share, the plain version's time and the bound (the limb products
-        of the truncated product, as for mul_batch)."""
-        bm, K = self.bigmul, self.K
+        share (a memset beside the kernel), the plain version's time, the
+        library yardstick (a float64 grouped conv1d of the column sums,
+        `library_pairs`), the limb products per second per SM and the
+        bound (the limb products of the truncated product, as for
+        mul_batch)."""
+        bm = self.bigmul
         rows = []
         for bits in (2 ** 15, 2 ** 18):
             u, v, q = self.main_inputs[bits]
             batch, m = q.shape
             work = (batch * m * (m + 1) // 2, 4 * batch * 3 * m)
-            kernels = (lambda: bm.pair_sums_cuda(q, v, K.tiles_for(m)),
+            kernels = (lambda: bm.mul_pairs(q, v, m),
                        lambda: bm.mul_batch_cuda(q, v, m))
             dev = self.device_us(list(kernels))
             row = dict(bits=bits, batch=batch, limbs=m,
@@ -1691,7 +1783,13 @@ class Smoke:
                        products=work[0], bytes=work[1])
             share = self.device_share(lambda: bm.mul_pairs(q, v, m))
             row.update(mul_pairs_call_device_ms=share["device_ms"],
-                       mul_pairs_call_busy_share=share["device_busy_share"])
+                       mul_pairs_call_busy_share=share["device_busy_share"],
+                       mul_pairs_call_device=share["device_by_kernel"],
+                       library=self.library_pairs(q, v, m,
+                                                  bm.mul_pairs(q, v, m)))
+            kdev = row["mul_pairs_kernel_device_ms"] or \
+                row["mul_pairs_kernel_burst_ms"]
+            row["mul_pairs_rate_per_sm"] = self.rate(work[0], kdev)
             # the whole division under each kernel impl, in turns
             for impl in ("cuda_fused", "cuda_pairs", "cuda_pairs",
                          "cuda_fused"):
@@ -1713,15 +1811,20 @@ class Smoke:
             plain_ms=r15["mul_pairs_plain_ms"], products=r15["products"],
             bytes=r15["bytes"], shape="q*v of the 2^15 x 256 division cell "
             "(2048 x 2048 -> 2048 limbs), beside mul_batch at that shape",
-            call_device_ms=r15["mul_pairs_call_device_ms"])
+            call_device_ms=r15["mul_pairs_call_device_ms"],
+            call_busy_share=r15["mul_pairs_call_busy_share"],
+            library_ms=r15["library"]["ms"], library=r15["library"],
+            rate_per_sm=r15["mul_pairs_rate_per_sm"])
         for name in ("mul_pairs", "mul_batch"):
             self.agg[name]["at_2p18"] = dict(
                 shape="q*v of the 2^18 x 32 division cell (16384 x 16384 "
                 "-> 16384 limbs)", event_ms=r18[f"{name}_ms"],
                 device_ms=kms(r18, name)[0], burst_ms=kms(r18, name)[1],
                 bound_ms=r18["bound_ms"], bound_by=r18["bound_by"])
-        self.agg["mul_pairs"]["at_2p18"]["plain_ms"] = \
-            r18["mul_pairs_plain_ms"]
+        self.agg["mul_pairs"]["at_2p18"].update(
+            plain_ms=r18["mul_pairs_plain_ms"], library=r18["library"],
+            rate_per_sm=r18["mul_pairs_rate_per_sm"],
+            call_busy_share=r18["mul_pairs_call_busy_share"])
         self.report["timing_pairs"] = rows
 
     def kernel_line(self, launches):
@@ -1734,8 +1837,9 @@ class Smoke:
         under full_window).  ms is
         the profiler's device time (CUDA events around the wrapper call
         where the profiler saw nothing; ms_source says which), event_ms
-        the events' time with the wrapper's host cost (for mul_pairs its
-        overlap-add and carry resolution in torch too)."""
+        the events' time with the wrapper's host cost.  mul_pairs'
+        library_ms is the float64 grouped conv1d of its column sums
+        (`library_pairs`), with cuDNN where that is exact."""
         out = []
         for name, (src, tpu) in KERNELS.items():
             a = self.agg[name]
@@ -1746,7 +1850,7 @@ class Smoke:
                      max_abs_err=self.err[name],
                      ms=a["device_ms"] if dev else a["event_ms"],
                      plain_ms=a["plain_ms"], bound_ms=bms, bound_by=by,
-                     library_ms=None, event_ms=a["event_ms"],
+                     library_ms=a.get("library_ms"), event_ms=a["event_ms"],
                      ms_source=a.get("ms_source", "profiler" if dev
                                      else "cuda_events"),
                      shape=a.get("shape",
@@ -1758,8 +1862,8 @@ class Smoke:
                 e["cluster"] = a["cluster"]
             if name in GRID_TWINS:
                 e["also_replaces"] = GRID_TWINS[name]
-            for extra in ("at_2p18", "call_device_ms", "full_window",
-                          "cells"):
+            for extra in ("at_2p18", "call_device_ms", "call_busy_share",
+                          "library", "rate_per_sm", "full_window", "cells"):
                 if extra in a:
                     e[extra] = a[extra]
             out.append(e)

@@ -111,7 +111,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P, P],
         "barrett_scratch_bytes": [I],
         "barrett_smem_bytes": [I, I, I],
-        "mul_pairs_launch": [P, P, P, I, I, I, I, P],
+        "mul_pairs_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
         "mul_pairs_tile": [],
     }
     for fn, args in sigs.items():
@@ -176,7 +176,8 @@ def check(err: int, what: str) -> None:
 
 # Shared memory a block may use on Hopper.  The product, step,
 # finalization and Barrett kernels stage their operands there as 16-bit
-# limbs (csrc/digitmma.cuh); the pair kernel two tiles of 32-bit words.
+# limbs (csrc/digitmma.cuh); the pair kernel one fixed-size v tile and u
+# window in the same layouts.
 SMEM_BYTES = 227 * 1024
 
 

@@ -11,8 +11,8 @@ bit-identical, so a caller may swap them freely):
                 (`bigmul.mul_batch_cuda`; JAX "pallas_batched"), with the
                 division-step and Barrett glue in torch.
   cuda_pairs    the pair-product kernel, one block per (instance, output
-                diagonal) (`bigmul.mul_pairs`; JAX "pallas"), glue in
-                torch.
+                column tile) with the carries chained in the launch
+                (`bigmul.mul_pairs`; JAX "pallas"), glue in torch.
   blocked       the plain product `mul_plain` (JAX "blocked"): torch ops
                 only, no kernel of this package.
 
@@ -44,8 +44,8 @@ import torch
 from repro_torch.core import arith as A
 from repro_torch.core.bigint import DTYPE, LOG_BASE, MASK
 
-# Limbs per tile of the plain product and of the pair kernel
-# (csrc/pairs.cu:kT).
+# Limbs per tile of the plain product (the pair kernel has its own
+# column tile, `bigmul.PAIRS_TC`).
 BLOCK_T = 128
 
 IMPLS = ("blocked", "cuda_pairs", "cuda_batched", "cuda_fused")
@@ -119,7 +119,7 @@ def resolve_columns(col: torch.Tensor) -> torch.Tensor:
 def pair_sums_plain(u: torch.Tensor, v: torch.Tensor,
                     d_keep: int) -> torch.Tensor:
     """Raw per-diagonal sums of the tiled product, in plain PyTorch: the
-    plain version of `csrc/pairs.cu`.
+    sums of the plain versions of `csrc/pairs.cu` and `csrc/mul.cu`.
 
     u (batch, Wu), v (batch, Wv) limbs; tile i of u is limbs [i*T,
     (i+1)*T).  Returns (batch, ndiag, 2T) int64 with raw[b, d, s] = sum
@@ -152,11 +152,10 @@ def pair_sums_plain(u: torch.Tensor, v: torch.Tensor,
     return raw.to(torch.int64)
 
 
-def columns_from_pairs(raw: torch.Tensor, out_width: int) -> torch.Tensor:
-    """Per-diagonal sums (batch, ndiag, 2T) -> canonical limbs (batch,
-    out_width): diagonal d is added at limb offset d * T (the
-    overlap-add), then `resolve_columns`.  Shared by the pair kernel and
-    every plain product, so the CPU runs the resolution the card runs."""
+def pair_columns(raw: torch.Tensor, out_width: int) -> torch.Tensor:
+    """Per-diagonal sums (batch, ndiag, 2T) -> the product's exact column
+    sums (batch, out_width) int64: diagonal d is added at limb offset
+    d * T (the overlap-add)."""
     t = BLOCK_T
     batch, ndiag, _ = raw.shape
     col = torch.zeros(batch, (ndiag + 1) * t, dtype=torch.int64,
@@ -166,7 +165,15 @@ def columns_from_pairs(raw: torch.Tensor, out_width: int) -> torch.Tensor:
     col = col[:, :out_width]
     if col.shape[1] < out_width:
         col = torch.nn.functional.pad(col, (0, out_width - col.shape[1]))
-    return resolve_columns(col)
+    return col
+
+
+def columns_from_pairs(raw: torch.Tensor, out_width: int) -> torch.Tensor:
+    """Per-diagonal sums (batch, ndiag, 2T) -> canonical limbs (batch,
+    out_width): `pair_columns`, then `resolve_columns`, the resolution
+    the digit-GEMM kernels run (`csrc/digitmma.cuh:cluster_resolve`).
+    Shared by every plain product."""
+    return resolve_columns(pair_columns(raw, out_width))
 
 
 def tiles_for(width: int) -> int:

@@ -115,11 +115,6 @@ def pad_ints(xs, bucket: int, fill: int) -> list:
     return list(xs) + [fill] * (bucket - len(xs))
 
 
-def pad_ints(xs, bucket: int, fill: int) -> list:
-    """Pad a request column to the bucket size with a benign fill."""
-    return list(xs) + [fill] * (bucket - len(xs))
-
-
 class ServiceMetrics:
     """A service's runtime metric families on one `telemetry.Registry`:
     requests and rows per op, true and padded rows per bucket, and

@@ -440,9 +440,8 @@ def test_pairs_kernel_matches_plain(dev, wu, wv, wo):
     assert torch.equal(got, K.mul_plain(u, v, wo))
     for x, y, row in zip(xs, ys, bi.batch_to_ints(got)):
         assert row == (x * y) % B ** wo
-    raw = bigmul.pair_sums_cuda(u, v, K.tiles_for(wo))
-    torch.cuda.synchronize()
-    assert torch.equal(raw, K.pair_sums_plain(u, v, K.tiles_for(wo)))
+    emulated, _, _ = bigmul.pairs_schedule_plain(u.cpu(), v.cpu(), wo, wo)
+    assert torch.equal(got.cpu(), emulated)
 
 
 @pytest.mark.parametrize("l_max", [1, 63, 64, 65, 127, 128, 129, 255, 256,
@@ -460,6 +459,69 @@ def test_mulmod_pairs_kernel_matches_plain(dev, l_max):
                                                           wu + 2))
     assert bi.batch_to_ints(got) == [(x * y) % B ** l_max
                                      for x, y in zip(xs, ys)]
+
+
+def _pairs_once(u, v, l_max, out_width):
+    """mulmod_pairs on the card, one launch, equal to its plain version."""
+    from repro_torch.kernels import bigmul
+    # the CPU emulation's column tile is the kernel's
+    assert build.lib("pairs").mul_pairs_tile() == bigmul.PAIRS_TC
+    build.reset_launch_counts()
+    got = bigmul.mulmod_pairs(u, v, l_max, out_width)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {"mul_pairs": 1}
+    assert torch.equal(got, bigmul.mulmod_pairs_reference(u, v, l_max,
+                                                          out_width))
+    return got
+
+
+@pytest.mark.parametrize("l_max", [1023, 1024, 1025, 2047, 2048, 2049,
+                                   3200])
+def test_pairs_kernel_carry_chain(dev, l_max):
+    """The in-launch carry at the kernel's 1,024-limb column tiles: lanes
+    just below and just above a tile's carry threshold, all-0xFFFF lanes
+    (every tile waits for its predecessor), random lanes; l_max at and
+    around the tile edges."""
+    from repro_torch.kernels import bigmul
+    us, vs = bigmul.threshold_lanes(bigmul.PAIRS_TC, 1, 3200, 300, l_max)
+    wu = max(-(-x.bit_length() // 16) for x in us)
+    rnd = random.Random(l_max)
+    us += [B ** wu - 1, rnd.getrandbits(16 * wu)]
+    vs += [B ** 300 - 1, rnd.getrandbits(16 * 300)]
+    got = _pairs_once(_t(us, wu, dev), _t(vs, 300, dev), l_max, 3300)
+    assert bi.batch_to_ints(got) == [x * y % B ** l_max
+                                     for x, y in zip(us, vs)]
+    x = B ** 3072 - 1
+    got = _pairs_once(_t([x], 3072, dev), _t([x], 3072, dev), l_max, 3072)
+    assert bi.batch_to_ints(got) == [x * x % B ** min(l_max, 3072)]
+
+
+@pytest.mark.parametrize("batch", [1, 256])
+def test_pairs_kernel_batches(dev, batch):
+    """The 2^15-bit divmod's q*v at batch 1 and 256 (lane 0 all-0xFFFF)."""
+    rng = np.random.default_rng(batch)
+    a = rng.integers(0, B, (2, batch, 2048), dtype=np.uint32)
+    a[:, 0] = B - 1
+    u, v = bi.limbs_from_numpy(a[0], dev), bi.limbs_from_numpy(a[1], dev)
+    got = _pairs_once(u, v, 2048, 2048)
+    assert bi.batch_to_ints(got[:2]) == [
+        x * y % B ** 2048 for x, y in zip(bi.batch_to_ints(u[:2]),
+                                         bi.batch_to_ints(v[:2]))]
+
+
+def test_pairs_kernel_2p16_limbs(dev):
+    """2^16 x 2^16 limbs -> 2^17, the column-sum contract's width, in one
+    launch: the kernel stages fixed-size tiles, so no width cap came back."""
+    from repro_torch.kernels import bigmul
+    w = bigmul.PAIRS_MAX_LIMBS
+    rnd = random.Random(16)
+    xs, ys = [rnd.getrandbits(16 * w), B ** w - 1], [B ** w - 1] * 2
+    build.build_all()
+    build.reset_launch_counts()
+    got = bigmul.mul_pairs(_t(xs, w, dev), _t(ys, w, dev), 2 * w)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {"mul_pairs": 1}
+    assert bi.batch_to_ints(got) == [x * y for x, y in zip(xs, ys)]
 
 
 @pytest.mark.parametrize("impl", ["cuda_batched", "cuda_pairs", "blocked"])

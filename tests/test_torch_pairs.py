@@ -4,12 +4,12 @@
 `mulmod_pallas`, the single-instance Pallas kernel (run here in
 interpret mode, as tests/test_kernels.py runs it), bit for bit.
 
-The port's tile is 128 limbs and the JAX kernel's 128 sub-digits (64
-limbs), so l_max runs at and around the edges of both.  Operands are
-numpy-seeded; the JAX kernel runs vmapped over the batch of 4.  On the
-CPU `mul_pairs` and `mulmod_pairs` run their plain versions, and the
-overlap-add and carry resolution they share with the card's kernel.
-Tolerance: exact equality.
+The plain product's tile is 128 limbs and the JAX kernel's 128
+sub-digits (64 limbs), so l_max runs at and around the edges of both.
+Operands are numpy-seeded; the JAX kernel runs vmapped over the batch
+of 4.  On the CPU `mul_pairs` and `mulmod_pairs` run their plain
+versions (the card kernel's schedule is emulated in
+tests/test_torch_pairs_digits.py).  Tolerance: exact equality.
 """
 
 import jax
@@ -122,4 +122,4 @@ def test_pair_sums_prune_and_overlap():
 def test_pairs_wrapper_refuses_cpu_tensors():
     u = torch.zeros(2, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        bigmul.pair_sums_cuda(u, u, 1)
+        bigmul.mulmod_pairs_cuda(u, u, 8, 16)
