@@ -81,9 +81,31 @@ Phases, each of which raises on failure:
      mul_pairs beside mul_batch at the q*v shapes of the 2^15 x 256 and
      2^18 x 32 cells, with its limb products per second per SM, the
      whole call's busy share, divmod under cuda_pairs against cuda_fused
-     in turns, and its library yardstick: the float64 grouped conv1d of
-     its column sums, checked exact.  ptxas registers and spills go to
-     the report.
+     in turns, and its library yardstick (also mul_batch's): the float64
+     grouped conv1d of the column sums, checked exact.  ptxas registers
+     and spills go to the report;
+  6b. graph against eager: the services' bucket executables (one CUDA
+     graph per (op, bucket, impl), serving/batching.py) at the division
+     cells (cuda_fused at 2^15..2^18 bits, cuda_batched and cuda_pairs
+     at 2^15 x 256 and 2^18 x 32) and the modular ones (precompute,
+     reduce, modmul at 2^15/2^16/2^17-bit moduli, modexp on 64 lanes
+     with 256-bit exponents), each replay timed against the eager call
+     in turns (eager, graph, graph, eager; median of 5 CUDA-event
+     timings after a warm-up, 3 for the unfused impls and the longer
+     modexps) with the busy share of each, equal to eager and to the
+     plain versions bit for bit, 3 replays counting 3x the cost model's
+     launches, and each build's warm-up, capture and instantiate
+     seconds and memory; a modexp with a full 2^15-bit exponent (the
+     service's default e_limbs) as one graph; one service call per
+     cuda_fused division cell and per modular op at 2^15 bits split
+     into pack, copy-in, replay, copy-out and unpack; and the
+     measured-vs-model table (obs/report.py) of every service, each
+     row matching.
+
+The services of phases 4, 5, 5b, 5c and 5d run through their bucket
+graphs; where a phase counts a service call's launches exactly, it
+builds the service's graphs first (`profile_bucket`), since a build's
+eager warm-up launches too.
 
 The kernel launch counters are set to 0 just before each of phases 4,
 4b, 4c, 5, 5b, 5c and 5d and read just after it.  Details go to
@@ -435,6 +457,7 @@ class Smoke:
         self.phase("timing", self.timing)
         self.phase("timing_pairs", self.timing_pairs)
         self.phase("timing_modarith", self.timing_modarith)
+        self.phase("graphs", self.graphs)
         kernels = self.kernel_line(launches)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -1366,6 +1389,265 @@ class Smoke:
         log(json.dumps(row))
         self.report["timing_modarith"] = rows
 
+    # -- phase 6b: graph against eager ---------------------------------------
+
+    @staticmethod
+    def outs(o):
+        """A tensor or a tuple of tensors (a BarrettContext) as a tuple."""
+        return (o,) if hasattr(o, "shape") else tuple(o)
+
+    def built(self, what, make):
+        """make() builds a bucket executable: it, and its build's cost
+        (the warm-up, the capture and the instantiation, in seconds, and
+        the growth of the reserved device memory over the capture)."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe = make()
+        dt = time.perf_counter() - t0
+        if exe.graph is None:
+            raise AssertionError(f"{what}: no graph on the card")
+        self.expect(f"{what}: graph launches vs its static profile",
+                    sum(exe.launches.values()),
+                    exe.static["kernel_launches"])
+        return exe, dict(build_seconds=dt,
+                         capture_seconds=exe.capture_seconds,
+                         instantiate_seconds=exe.instantiate_seconds,
+                         pool_bytes=exe.memory_bytes,
+                         glue_ops=exe.static["glue_ops"])
+
+    def graph_vs_eager(self, what, exe, info, args, eager, model,
+                       plain=None, runs=5):
+        """The executable's call (copy in, replay, copy out) against the
+        eager call, in turns (eager, graph, graph, eager; each a median
+        of `runs` CUDA-event timings after a warm-up), with each one's
+        device busy share (torch.profiler); the replay equal to eager
+        and plain bit for bit; 3 replays counting 3x the model's
+        launches."""
+        torch = self.torch
+        graph = lambda: exe(*args)
+        ms = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            ms[kind].append(self.time_ms(graph if kind == "graph" else eager,
+                                         runs=runs))
+        got = self.outs(graph())
+        refs = [("eager", self.outs(eager()))]
+        if plain is not None:
+            refs.append(("plain", self.outs(plain())))
+        torch.cuda.synchronize()
+        for name, ref in refs:
+            if len(ref) != len(got) or not all(
+                    torch.equal(g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"{what}: the replay differs from "
+                                     f"{name}")
+        self.build.reset_launch_counts()
+        for _ in range(3):
+            graph()
+        torch.cuda.synchronize()
+        self.expect(f"{what}: launches of 3 replays",
+                    self.build.launch_counts(),
+                    {k: 3 * n for k, n in exe.launches.items()})
+        self.expect(f"{what}: launches per replay",
+                    sum(exe.launches.values()), model)
+        se, sg = self.device_share(eager), self.device_share(graph)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        row = dict(cell=what, eager_ms=ms["eager"], graph_ms=ms["graph"],
+                   speedup=med["eager"] / med["graph"],
+                   eager_device_ms=se["device_ms"],
+                   eager_busy_share=se["device_busy_share"],
+                   graph_device_ms=sg["device_ms"],
+                   graph_busy_share=sg["device_busy_share"],
+                   launches_per_call=model,
+                   checked_against=[n for n, _ in refs], **info)
+        if se["device_ms"]:
+            # the replay runs the eager call's device work
+            row["graph_busy_share_of_eager_device"] = (se["device_ms"]
+                                                       / med["graph"])
+        log(json.dumps(row))
+        return row
+
+    def split_call(self, what, exe, pack, unpack, call):
+        """One service chunk split into its steps, each timed on the host
+        clock up to a synchronize: pack (Python ints to host limbs),
+        copy-in, replay, copy-out (to host numpy), unpack (to Python
+        ints), beside the whole service call."""
+        torch, bi = self.torch, self.bi
+        t = {}
+        t0 = time.perf_counter()
+        args = pack()
+        t["pack_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for dst, src in zip(exe.inputs, args):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        t["copy_in_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        exe.graph.replay()
+        torch.cuda.synchronize()
+        t["replay_ms"] = (time.perf_counter() - t0) * 1e3
+        self.build.count_all(exe.launches)
+        t0 = time.perf_counter()
+        outs = [bi.limbs_to_numpy(o) for o in exe.outputs]
+        t["copy_out_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        unpack(outs)
+        t["unpack_ms"] = (time.perf_counter() - t0) * 1e3
+        call()                                       # warm
+        t0 = time.perf_counter()
+        call()
+        t["service_call_ms"] = (time.perf_counter() - t0) * 1e3
+        row = dict(cell=what, **t)
+        log(json.dumps(row))
+        return row
+
+    def graphs(self):
+        """Phase 6b: every service's bucket executables against the eager
+        calls, at the division cells (cuda_fused at 2^15..2^18 bits,
+        cuda_batched and cuda_pairs at 2^15 x 256 and 2^18 x 32) and the
+        modular ones (the precompute, reduce and modmul at 2^15/2^16/2^17
+        bits, modexp on 64 lanes with 256-bit exponents), then a modexp
+        with a full 2^15-bit exponent (the service's default e_limbs =
+        m_limbs: the whole ladder in one graph); the service calls split
+        into their steps; the measured-vs-model table of every service,
+        each row matching on the card."""
+        S, MA, CM, bi = self.S, self.MA, self.CM, self.bi
+        from repro_torch.obs import report as R
+        from repro_torch.serving import batching as BT
+        rows, splits, services = [], [], []
+        plain = {}
+        cells = [(bits, batch, "cuda_fused") for bits, batch in PRECISIONS]
+        cells += [(bits, batch, impl) for impl in ("cuda_batched",
+                                                   "cuda_pairs")
+                  for bits, batch in (PRECISIONS[0], PRECISIONS[-1])]
+        for bits, batch, impl in cells:
+            m = bits // 16
+            u, v, _ = self.main_inputs[bits]
+            what = f"divmod 2^{bits.bit_length() - 1} x {batch}, {impl}"
+            svc = self.Service(m_limbs=m, batch_buckets=(batch,),
+                               device=self.dev, impl=impl)
+            exe, info = self.built(what, lambda: svc._fn(batch))
+            if bits not in plain:
+                plain[bits] = S.divmod_batch(u, v, impl="blocked")
+            rows.append(self.graph_vs_eager(
+                what, exe, info, (u, v),
+                lambda: S.divmod_batch(u, v, impl=impl),
+                CM.divmod_launches(m, impl), plain=lambda: plain[bits],
+                runs=5 if impl == "cuda_fused" else 3))
+            services.append(svc)
+            if impl != "cuda_fused":
+                continue
+            us, vs = operands(m, batch, bits + 1)
+            pad = lambda xs, fill: bi.limbs_from_numpy(bi.batch_from_ints(
+                BT.pad_ints(xs, batch, fill), m), "cpu")
+            splits.append(self.split_call(
+                what, exe, lambda: (pad(us, 0), pad(vs, 1)),
+                lambda o: [bi.batch_to_ints(a) for a in o],
+                lambda: svc.divide(us, vs)))
+        plain.clear()
+        for bits, batch in MODULI:
+            m = bits // 16
+            mi = self.mod_inputs[bits]
+            L, ctx, x, a, b = (mi[k] for k in ("L", "ctx", "x", "a", "b"))
+            et = self.tensor(L["e"][:64], E_LIMBS)
+            tag = f"2^{bits.bit_length() - 1}-bit modulus"
+            svc = self.ModService(m_limbs=m, e_limbs=E_LIMBS,
+                                  batch_buckets=sorted({64, batch}),
+                                  device=self.dev)
+            first = bits == MODULI[0][0]
+            cases = (
+                ("precompute", svc._precompute_fn, (mi["vt"],),
+                 lambda impl=None: MA.barrett_precompute(mi["vt"], impl),
+                 CM.precompute_launches(m), batch),
+                ("reduce", lambda: svc._fn("reduce", batch), (*ctx, x),
+                 lambda impl=None: MA.reduce_shared(ctx, x, impl),
+                 CM.barrett_launches(), batch),
+                ("modmul", lambda: svc._fn("modmul", batch), (*ctx, a, b),
+                 lambda impl=None: MA.modmul_shared(ctx, a, b, impl),
+                 CM.modmul_launches(), batch),
+                ("modexp", lambda: svc._fn("modexp", 64),
+                 (*ctx, a[:64], et),
+                 lambda impl=None: MA.modexp_shared(ctx, a[:64], et,
+                                                    impl=impl),
+                 CM.modexp_launches(16 * E_LIMBS), 64))
+            for op, make, args, eager, model, lanes in cases:
+                what = f"{op}, {tag}, {lanes} lanes"
+                exe, info = self.built(what, make)
+                long = op == "modexp" and not first
+                rows.append(self.graph_vs_eager(
+                    what, exe, info, args, eager, model,
+                    plain=None if long else (lambda e=eager: e("blocked")),
+                    runs=3 if long else 5))
+                if not first or op == "precompute":
+                    continue
+                cols = {"reduce": (L["x"],), "modmul": (L["a"], L["b"]),
+                        "modexp": (L["a"][:64], L["e"][:64])}[op]
+                widths = {"reduce": (2 * m,), "modmul": (m, m),
+                          "modexp": (m, E_LIMBS)}[op]
+                pack = lambda cols=cols, widths=widths, n=lanes: tuple(
+                    ctx) + tuple(bi.limbs_from_numpy(bi.batch_from_ints(
+                        BT.pad_ints(c, n, 0), w), "cpu")
+                        for c, w in zip(cols, widths))
+                splits.append(self.split_call(
+                    what, exe, pack,
+                    lambda o: [bi.batch_to_ints(a) for a in o],
+                    lambda op=op, cols=cols: getattr(svc, op)(*cols,
+                                                              L["v"])))
+            services.append(svc)
+        row, svc = self.full_exponent()
+        rows.append(row)
+        services.append(svc)
+        tables = []
+        for svc in services:
+            snap = svc.snapshot()
+            table = R.render_measured_vs_model(snap)
+            log(table)
+            tables.append(table)
+            bad = [r for r in R.measured_vs_model(snap)
+                   if not r["match"] or r["model_launches"] is None]
+            if bad:
+                raise AssertionError(f"measured vs model: {bad}")
+        self.report["graphs"] = dict(cells=rows, splits=splits,
+                                     measured_vs_model=tables)
+
+    def full_exponent(self):
+        """ModArithService's default e_limbs = m_limbs at a 2^15-bit
+        modulus on 4 lanes: the whole ladder (modexp_launches(2^15)
+        launches) as one graph; its build's cost, one replay against one
+        eager call, equal bit for bit."""
+        MA, CM = self.MA, self.CM
+        m, lanes = M15, 4
+        svc = self.ModService(m_limbs=m, batch_buckets=(lanes,),
+                              device=self.dev)
+        mi = self.mod_inputs[2 ** 15]
+        ctx, a = mi["ctx"], mi["a"][:lanes]
+        rnd = random.Random(2 ** 15)
+        e = self.tensor([rnd.getrandbits(16 * m) for _ in range(lanes - 1)]
+                        + [(1 << (16 * m)) - 1], m)
+        what = f"modexp, 2^15-bit modulus, 2^15-bit exponents, {lanes} lanes"
+        exe, info = self.built(what, lambda: svc._fn("modexp", lanes))
+        model = CM.modexp_launches(16 * m)
+        self.expect(f"{what}: launches per replay",
+                    sum(exe.launches.values()), model)
+        torch = self.torch
+        ev = lambda: (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        (g0, g1), (e0, e1) = ev(), ev()
+        g0.record()
+        got = exe(*ctx, a, e)
+        g1.record()
+        g1.synchronize()
+        e0.record()
+        want = MA.modexp_shared(ctx, a, e)
+        e1.record()
+        e1.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: the replay differs from eager")
+        row = dict(cell=what, graph_ms=[g0.elapsed_time(g1)],
+                   eager_ms=[e0.elapsed_time(e1)], launches_per_call=model,
+                   checked_against=["eager"], **info)
+        log(json.dumps(row))
+        return row, svc
+
     # -- phase 3c: the pair kernel against its plain version ----------------
 
     def limbs(self, batch, w, seed, zero_lane=False):
@@ -1577,6 +1859,8 @@ class Smoke:
         for m, buckets, n in ((M15, (16, 64), 40), (M18, (8,), 8)):
             svc = self.Service(m_limbs=m, batch_buckets=buckets,
                                device=self.dev, impl=impl)
+            for b in buckets:               # the graphs, before the count
+                svc.profile_bucket(b)
             us, vs = operands(m, n, m + 5)
             got, counts = self.launched_by(lambda: svc.divide(us, vs))
             chunks = len(svc.batcher.plan(n))
@@ -1590,6 +1874,10 @@ class Smoke:
                               device=self.dev, impl=impl)
         L = mod_operands(M15, 20, 2052)
         v, e16 = L["v"], [e % (1 << 16) for e in L["e"][:8]]
+        mod.profile_bucket("precompute", 1)
+        for op in ("reduce", "modmul", "modexp"):
+            for b in (16, 64):
+                mod.profile_bucket(op, b)
         calls = (("reduce", (L["x"],), CM.precompute_launches(M15, impl)
                   + CM.model_launches("reduce", M15, impl)),
                  ("modmul", (L["a"], L["b"]),
@@ -1606,6 +1894,8 @@ class Smoke:
             log(f"cuda_pairs {op}, 2^15-bit modulus: {counts}, exact")
         big = self.ModService(m_limbs=M18, batch_buckets=(4,),
                               device=self.dev, impl=impl)
+        big.profile_bucket("precompute", 1)
+        big.profile_bucket("reduce", 4)
         Lb = mod_operands(M18, 8, 2 ** 18)
         xs, v = Lb["x"][:4], Lb["v"]
         t0 = time.perf_counter()
@@ -1680,6 +1970,7 @@ class Smoke:
         inj = FI([FS(site="compile", impl="cuda_pairs", kind="compile",
                      times=0)], seed=len(plans))
         reqs = [r for r in self.mod_requests(M15, 151) if r[0] != "modexp"]
+        svc.profile_bucket("precompute", 1)
         (outs, health, fe), counts = self.launched_by(
             lambda: self.serve(svc, reqs, inj, return_exceptions=True))
         if not (all(isinstance(o, self.errors.ServingError) for o in outs)
@@ -1821,6 +2112,10 @@ class Smoke:
                 "-> 16384 limbs)", event_ms=r18[f"{name}_ms"],
                 device_ms=kms(r18, name)[0], burst_ms=kms(r18, name)[1],
                 bound_ms=r18["bound_ms"], bound_by=r18["bound_by"])
+        # the conv1d computes mul_batch's q*v product too: its yardstick
+        self.agg["mul_batch"].update(library_ms=r15["library"]["ms"],
+                                     library=r15["library"])
+        self.agg["mul_batch"]["at_2p18"]["library"] = r18["library"]
         self.agg["mul_pairs"]["at_2p18"].update(
             plain_ms=r18["mul_pairs_plain_ms"], library=r18["library"],
             rate_per_sm=r18["mul_pairs_rate_per_sm"],

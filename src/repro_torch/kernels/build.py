@@ -10,7 +10,12 @@ load, `LaunchError` when a launch is refused or fails.
 
 Every kernel wrapper counts its launches here (`count`), so a caller can
 show that a run went through the kernels: `reset_launch_counts()`
-before the run, `launch_counts()` after it.
+before the run, `launch_counts()` after it.  A thread can also record
+its own launches in a `recording` scope: the serving layer's bucket
+executables take their static launch profile that way, and a scope
+opened for a CUDA graph capture keeps the captured launches out of the
+counts (nothing ran yet), so that each replay of the graph counts them
+(`count_all`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -37,6 +43,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _counts: dict[str, int] = {}
 _count_lock = threading.Lock()
+_local = threading.local()        # this thread's recording scopes
 build_seconds: float | None = None
 
 
@@ -54,11 +61,42 @@ class LaunchError(RuntimeError):
         super().__init__(f"{what} failed with cudaError_t {err}")
 
 
-def count(name: str) -> None:
-    """Record one launch of kernel `name` (called by its wrapper; safe
-    from several threads)."""
+def count(name: str, n: int = 1) -> None:
+    """Record n launches of kernel `name` (called by its wrapper, and by
+    a graph replay with its recorded launches; safe from several
+    threads).  Every `recording` scope open in this thread records them
+    too; under a capture scope only the scopes do, since a captured
+    launch runs when its graph is replayed."""
+    for rec in getattr(_local, "scopes", ()):
+        rec[name] = rec.get(name, 0) + n
+    if getattr(_local, "capturing", 0):
+        return
     with _count_lock:
-        _counts[name] = _counts.get(name, 0) + 1
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def count_all(launches: dict[str, int]) -> None:
+    """Count a recorded {kernel: launches} dict once (a graph replay)."""
+    for name, n in launches.items():
+        count(name, n)
+
+
+@contextmanager
+def recording(capture: bool = False):
+    """Record the launches this thread's wrappers make inside the scope
+    as a {kernel: launches} dict (yielded, filled as they launch).
+    Scopes nest, and another thread's launches never enter them.  With
+    `capture` (a CUDA graph capture, where nothing launches yet) the
+    launches go to the open scopes only, not to `launch_counts()`."""
+    rec: dict[str, int] = {}
+    scopes = _local.__dict__.setdefault("scopes", [])
+    scopes.append(rec)
+    _local.capturing = getattr(_local, "capturing", 0) + int(capture)
+    try:
+        yield rec
+    finally:
+        scopes.remove(rec)
+        _local.capturing -= int(capture)
 
 
 def launch_counts() -> dict[str, int]:

@@ -180,10 +180,14 @@ def barrett_reference(x, mu, v, *, h: int, mul=mul_plain):
 # ---------------------------------------------------------------------------
 
 def _scalars(batch: int, device, **cols) -> dict[str, torch.Tensor]:
-    """Per-instance scalars as contiguous (batch,) int32 on the card."""
+    """Per-instance scalars as contiguous (batch,) int32 on the card.  A
+    Python int becomes a device fill, not a copy from the host, so a
+    wrapper can be captured in a CUDA graph whatever it is given."""
     out = {}
     for name, c in cols.items():
-        c = torch.as_tensor(c, device=device).to(torch.int32)
+        c = c.to(device=device, dtype=torch.int32) \
+            if isinstance(c, torch.Tensor) \
+            else torch.full((), int(c), dtype=torch.int32, device=device)
         out[name] = c.expand(batch).contiguous() if c.ndim == 0 \
             else c.contiguous()
         check_limbs(name, out[name], (batch,))

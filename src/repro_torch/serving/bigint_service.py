@@ -1,14 +1,19 @@
 """Batched multi-precision division service on the card.
 
 Requests are Python ints; the service validates them, packs each chunk
-of a request into a bucket-sized (bucket, m_limbs) limb batch on its
-device, runs `core.shinv.divmod_batch` there with its impl, and unpacks
-exact results.  The port of `repro/serving/bigint_service.py` without
-trace profiles or a mesh.
+of a request into a bucket-sized (bucket, m_limbs) limb batch on the
+host, runs `core.shinv.divmod_batch` with its impl on its device, and
+unpacks exact results.  The port of `repro/serving/bigint_service.py` without a
+mesh.
 
-Observability: the first use of an (op, bucket, impl) builds its
-`KernelPlan` (`kernel_plans`, `snapshot()`); every request records
-runtime counters on `telemetry.registry`.  The fault-injection sites of
+Each (bucket, impl) runs one executable (`batching.CompiledBuckets`),
+built on its first use: on the card a CUDA graph of the whole division,
+so a chunk is a copy into the graph's static inputs, one replay and a
+copy out.  The build takes the bucket's static launch profile
+(`static_profiles`; `profile_bucket` builds without a request) beside
+its `KernelPlan` (`kernel_plans`), and `snapshot()` merges them with the
+runtime counters every request records on `telemetry.registry`, for
+`obs/report.py:render_measured_vs_model`.  The fault-injection sites of
 serving/faults.py (compile, transfer, execute) fire when an injector is
 installed.
 """
@@ -51,8 +56,9 @@ class BigintDivisionService:
         S.check_width(self.device, m_limbs, impl)   # before any request
         self.batcher = BT.Batcher(batch_buckets)
         self.telemetry = BT.ServiceMetrics()
-        self._plans = BT.PlanCache()
-        self.kernel_plans = self._plans.current     # bucket -> KernelPlan
+        self._fns = BT.CompiledBuckets()
+        self.kernel_plans = self._fns.current       # bucket -> KernelPlan
+        self.static_profiles: dict[int, dict] = {}  # bucket -> op -> profile
         self.faults = faults
 
     @property
@@ -79,6 +85,30 @@ class BigintDivisionService:
         E.check_operands("v", columns[1], lim, f"B^{self.m}")
         return n
 
+    def _fn(self, bucket: int, impl: str | None = None) -> BT.Executable:
+        """The (bucket, impl) executable, built on its first use (the
+        compile fault site fires before the build)."""
+        eff = K.check_impl(impl or self.impl)
+
+        def build():
+            plan = BT.kernel_plan(eff)
+            u = torch.zeros(bucket, self.m, dtype=bi.DTYPE,
+                            device=self.device)
+            v = u.clone()
+            v[:, 0] = 1                     # pad_ints' fill: u = 0, v = 1
+            exe = BT.Executable(partial(S.divmod_batch, impl=eff), (u, v),
+                                plan)
+            self.static_profiles.setdefault(bucket, {})["divmod"] = exe.static
+            return exe
+        return self._fns.use("divmod", bucket, eff, K.check_impl(self.impl),
+                             build, partial(self._fire, "compile"))
+
+    def profile_bucket(self, bucket: int) -> dict:
+        """Build one bucket's executable without a request and return
+        its static profiles ({op: profile})."""
+        self._fn(bucket)
+        return self.static_profiles.get(bucket, {})
+
     def divide(self, us: list[int], vs: list[int], *,
                impl: str | None = None):
         """Exact (q, r) lists for batched u / v; v = 0 gives the total
@@ -94,17 +124,15 @@ class BigintDivisionService:
         for lo, hi, bucket in self.batcher.plan(n):
             self._fire("transfer", op="divmod", bucket=bucket)
             u = bi.limbs_from_numpy(bi.batch_from_ints(
-                BT.pad_ints(us[lo:hi], bucket, 0), self.m), self.device)
+                BT.pad_ints(us[lo:hi], bucket, 0), self.m), "cpu")
             v = bi.limbs_from_numpy(bi.batch_from_ints(
-                BT.pad_ints(vs[lo:hi], bucket, 1), self.m), self.device)
-            plan = self._plans.use(
-                "divmod", bucket, eff, K.check_impl(self.impl),
-                partial(self._fire, "compile"))
+                BT.pad_ints(vs[lo:hi], bucket, 1), self.m), "cpu")
+            fn = self._fn(bucket, eff)
             self.telemetry.record_rows(bucket, hi - lo)
             with T.annotate(f"bigint_service/divmod/b{bucket}"), \
                     self.telemetry.chunk_timer("divmod", bucket):
                 self._fire("execute", op="divmod", bucket=bucket, impl=eff)
-                q, r = S.divmod_batch(u, v, impl=plan.impl)
+                q, r = fn(u, v)
                 q, r = bi.limbs_to_numpy(q), bi.limbs_to_numpy(r)
             keep = hi - lo
             qs += bi.batch_to_ints(q[:keep])
@@ -115,20 +143,23 @@ class BigintDivisionService:
 
     def stats(self) -> dict:
         """Runtime counters; `bucket_compiles` counts the (op, bucket,
-        impl) plans built, `bucket_reuses` the later uses."""
+        impl) executables built, `bucket_reuses` the later uses."""
         out = self.telemetry.stats()
-        out["bucket_compiles"] = self._plans.misses
-        out["bucket_reuses"] = self._plans.hits
+        out["bucket_compiles"] = self._fns.misses
+        out["bucket_reuses"] = self._fns.hits
         return out
 
     def snapshot(self) -> dict:
-        """Per-bucket KernelPlans beside the runtime counters."""
+        """Merged static and runtime profile: per bucket the KernelPlan
+        and the static launch profile, beside the runtime counters.
+        Render with `obs/report.py:render_measured_vs_model`."""
         return {
             "service": "bigint_division",
             "m_limbs": self.m,
             "impl": K.check_impl(self.impl),
+            "device": self.device.type,
             "iters": S.refine_iters(self.m),
-            "buckets": {b: {"plan": p._asdict()}
-                        for b, p in sorted(self.kernel_plans.items())},
+            "buckets": BT.snapshot_buckets(self.kernel_plans,
+                                           self.static_profiles),
             "runtime": self.stats(),
         }

@@ -730,3 +730,205 @@ def test_modarith_paper_moduli_launch_counts(dev, m):
     assert build.launch_counts() == {"barrett": lad["reductions"],
                                      "mul_batch": lad["modmuls"]}
     assert bi.batch_to_ints(got) == [pow(x, y, v) for x, y in zip(a, es)]
+
+
+# ---------------------------------------------------------------------------
+# bucket executables: one CUDA graph per (op, bucket, impl)
+# ---------------------------------------------------------------------------
+
+def _graph(fn, fill, impl):
+    from repro_torch.serving import batching as BT
+    return BT.Executable(fn, fill, BT.kernel_plan(impl))
+
+
+def _replayed(exe, args, n=3):
+    """n replays of exe on args: the last outputs and the launches the
+    replays counted."""
+    build.reset_launch_counts()
+    for _ in range(n):
+        out = exe(*args)
+    torch.cuda.synchronize()
+    return out, build.launch_counts()
+
+
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda_batched",
+                                  "cuda_pairs"])
+@pytest.mark.parametrize("m", [4, 2048])
+def test_divmod_graph_replay_equals_eager_and_plain(dev, m, impl):
+    """A divmod graph captured on the padding fill: 3 replays count 3x
+    the cost model's launches, and the replay equals the eager call,
+    the plain versions (impl blocked) and Python divmod."""
+    from functools import partial
+    rnd = random.Random(m)
+    us = [rnd.randint(0, B ** m - 1) for _ in range(8)]
+    vs = [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(8)]
+    vs[1] = 0
+    u, v = _t(us, m, dev), _t(vs, m, dev)
+    fu = torch.zeros_like(u)
+    fv = fu.clone()
+    fv[:, 0] = 1
+    exe = _graph(partial(S.divmod_batch, impl=impl), (fu, fv), impl)
+    assert sum(exe.launches.values()) == CM.divmod_launches(m, impl)
+    assert exe.static["kernel_launches"] == CM.divmod_launches(m, impl)
+    (q, r), counts = _replayed(exe, (u.cpu(), v.cpu()))
+    assert counts == {k: 3 * n for k, n in exe.launches.items()}
+    for qq, rr in (S.divmod_batch(u, v, impl=impl),
+                   S.divmod_batch(u, v, impl="blocked")):
+        assert torch.equal(q, qq) and torch.equal(r, rr)
+    assert list(zip(bi.batch_to_ints(q), bi.batch_to_ints(r))) == [
+        divmod(x, y) if y else (0, x) for x, y in zip(us, vs)]
+
+
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda_pairs"])
+@pytest.mark.parametrize("m", [4, 2048])
+def test_modarith_graphs_replay_equal_eager_and_plain(dev, m, impl):
+    """The precompute, reduce, modmul and a 16-bit-exponent modexp as
+    graphs over static context buffers: 3 replays count 3x the model,
+    and every replay equals the eager call, the plain versions and
+    Python."""
+    from functools import partial
+    from repro_torch.core import modarith as MA
+    rnd = random.Random(m + 1)
+    mod = rnd.randint(B ** (m - 1), B ** m - 1)
+    xs = [rnd.randint(0, B ** (2 * m) - 1) for _ in range(4)]
+    a = [x % B ** m for x in xs]
+    es = [0, 1, 65535, 12345]
+    vt = _t([mod], m, dev)[0]
+    one = torch.zeros_like(vt)
+    one[0] = 1
+    pre = _graph(partial(MA.barrett_precompute, impl=impl), (one,), impl)
+    ctx, counts = _replayed(pre, (vt,))
+    assert sum(counts.values()) == 3 * CM.precompute_launches(m, impl)
+    ctx = MA.BarrettContext(*ctx)
+    for eager in (MA.barrett_precompute(vt, impl),
+                  MA.barrett_precompute(vt, "blocked")):
+        assert torch.equal(ctx.mu, eager.mu) and torch.equal(ctx.k, eager.k)
+    fill_ctx = (one, torch.zeros_like(ctx.mu), torch.zeros_like(ctx.k))
+    cases = (("reduce", MA.reduce_shared, (_t(xs, 2 * m, dev),), {},
+              [x % mod for x in xs]),
+             ("modmul", MA.modmul_shared, (_t(a, m, dev),
+                                           _t(a[::-1], m, dev)), {},
+              [x * y % mod for x, y in zip(a, a[::-1])]),
+             ("modexp", MA.modexp_shared, (_t(a, m, dev), _t(es, 1, dev)),
+              {"e_bits": 16}, [pow(x, y, mod) for x, y in zip(a, es)]))
+    for op, f, cols, kw, want in cases:
+        def run(v, mu, k, *c, f=f):
+            return f(MA.BarrettContext(v, mu, k), *c, impl=impl)
+        exe = _graph(run, fill_ctx + tuple(torch.zeros_like(c)
+                                           for c in cols), impl)
+        got, counts = _replayed(exe, tuple(ctx) + cols)
+        assert sum(counts.values()) == 3 * CM.model_launches(op, m, impl,
+                                                             **kw)
+        for eager in (f(ctx, *cols, impl=impl), f(ctx, *cols,
+                                                   impl="blocked")):
+            assert torch.equal(got, eager)
+        assert bi.batch_to_ints(got) == want
+
+
+def test_services_replay_graphs_per_bucket(dev):
+    """Both services on the card at 2^15 bits: one executable per
+    (op, bucket), a graph with the model's launches, exact answers, and
+    a measured-vs-model report whose every row matches."""
+    from repro_torch.obs import report as R
+    from repro_torch.serving.bigint_service import BigintDivisionService
+    from repro_torch.serving.modexp_service import ModArithService
+    m = 2048
+    rnd = random.Random(15)
+    svc = BigintDivisionService(m_limbs=m, batch_buckets=(4, 8), device=dev)
+    us = [rnd.randint(0, B ** m - 1) for _ in range(11)]
+    vs = [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(11)]
+    qs, rs = svc.divide(us, vs)
+    assert list(zip(qs, rs)) == [divmod(x, y) for x, y in zip(us, vs)]
+    assert svc.stats()["bucket_compiles"] == 2
+    mod = ModArithService(m_limbs=m, e_limbs=1, batch_buckets=(4,),
+                          device=dev)
+    v = rnd.randint(B ** (m - 1), B ** m - 1)
+    a = [rnd.randint(0, B ** m - 1) for _ in range(4)]
+    assert mod.modexp(a, [3, 0, 1, 65535], v) == [
+        pow(x, e, v) for x, e in zip(a, [3, 0, 1, 65535])]
+    assert mod.reduce([x * x for x in a], v) == [x * x % v for x in a]
+    for snap in (svc.snapshot(), mod.snapshot()):
+        rows = R.measured_vs_model(snap)
+        assert rows and all(r["match"] and r["model_launches"]
+                            for r in rows), R.render_measured_vs_model(snap)
+
+
+def test_threads_share_one_bucket_graph(dev):
+    """8 threads replay one bucket's graph with their own operands:
+    every answer exact, one build."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serving.bigint_service import BigintDivisionService
+    m = 26
+    svc = BigintDivisionService(m_limbs=m, batch_buckets=(4,), device=dev)
+    rnd = random.Random(8)
+    jobs = [([rnd.randint(0, B ** m - 1) for _ in range(4)],
+             [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(4)])
+            for _ in range(32)]
+
+    def work(job):
+        return svc.divide(*job)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        outs = list(pool.map(work, jobs))
+    for (us, vs), (qs, rs) in zip(jobs, outs):
+        assert list(zip(qs, rs)) == [divmod(x, y) for x, y in zip(us, vs)]
+    st = svc.stats()
+    assert (st["bucket_compiles"], st["bucket_reuses"]) == (1, 31)
+
+
+def test_compile_fault_and_failed_capture_cache_nothing(dev):
+    """A seeded compile fault raises the typed fault before any build,
+    and a capture that raises caches nothing and leaves the device
+    usable: the next build captures and answers exactly."""
+    from repro_torch.serving import batching as BT
+    from repro_torch.serving import errors as E
+    from repro_torch.serving.bigint_service import BigintDivisionService
+    from repro_torch.serving.faults import FaultInjector, FaultSpec
+    m = 4
+    svc = BigintDivisionService(m_limbs=m, batch_buckets=(2,), device=dev)
+    svc.set_fault_injector(FaultInjector([FaultSpec(
+        site="compile", impl="cuda_fused", kind="compile", times=1)]))
+    build.build_all()
+    build.reset_launch_counts()
+    with pytest.raises(E.CompileFault):
+        svc.divide([7, 9], [2, 4])
+    assert len(svc._fns) == 0 and svc.kernel_plans == {}
+    assert build.launch_counts() == {}
+    assert svc.divide([7, 9], [2, 4]) == ([3, 2], [1, 1])
+
+    def refuse(u, v):
+        if torch.cuda.is_current_stream_capturing():
+            raise build.LaunchError("a kernel under capture", 1)
+        return S.divmod_batch(u, v)
+
+    cache = BT.CompiledBuckets()
+    fill = torch.ones(2, m, dtype=torch.int32, device=dev)
+    with pytest.raises(build.LaunchError):
+        cache.use("divmod", 2, "cuda_fused", "cuda_fused",
+                  lambda: BT.Executable(refuse, (fill, fill),
+                                        BT.kernel_plan()))
+    assert len(cache) == 0 and cache.current == {}
+    exe = cache.use("divmod", 2, "cuda_fused", "cuda_fused",
+                    lambda: BT.Executable(S.divmod_batch, (fill, fill),
+                                          BT.kernel_plan()))
+    q, r = exe(_t([7, 9], m, dev), _t([2, 4], m, dev))
+    assert bi.batch_to_ints(q) == [3, 2] and bi.batch_to_ints(r) == [1, 1]
+
+
+def test_modexp_full_exponent_graph(dev):
+    """ModArithService's default e_limbs = m_limbs at a small m: the whole
+    ladder captures as one graph, with the model's launches, exact."""
+    from repro_torch.serving.modexp_service import ModArithService
+    m = 4
+    mod = ModArithService(m_limbs=m, batch_buckets=(4,), device=dev)
+    rnd = random.Random(44)
+    v = rnd.randint(B ** (m - 1), B ** m - 1)
+    a = [rnd.randint(0, B ** m - 1) for _ in range(4)]
+    e = [rnd.randint(0, B ** m - 1) for _ in range(3)] + [B ** m - 1]
+    mod.profile_bucket("precompute", 1)
+    mod.profile_bucket("modexp", 4)
+    build.reset_launch_counts()
+    assert mod.modexp(a, e, v) == [pow(x, y, v) for x, y in zip(a, e)]
+    torch.cuda.synchronize()
+    assert sum(build.launch_counts().values()) == (
+        CM.precompute_launches(m) + CM.modexp_launches(16 * m))

@@ -290,7 +290,7 @@ def test_concurrent_requests_single_plan_and_precompute():
         a, b = cols[i % len(cols)]
         assert res == [(x * y) % v for x, y in zip(a, b)]
     assert svc.ctx_misses == 1 and len(svc._ctxs) == 1
-    assert svc._plans.misses == 1 and svc._plans.hits == 15
+    assert svc._fns.misses == 1 and svc._fns.hits == 15
     st = svc.stats()
     assert (st["bucket_compiles"], st["bucket_reuses"]) == (1, 15)
     assert st["requests"] == {"modmul": 16} and st["rows_true"] == 64
