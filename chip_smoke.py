@@ -100,15 +100,34 @@ Phases, each of which raises on failure:
      cuda_fused division cell and per modular op at 2^15 bits split
      into pack, copy-in, replay, copy-out and unpack; and the
      measured-vs-model table (obs/report.py) of every service, each
-     row matching.
+     row matching;
+  7. the sharded path: a mesh of two shards (two cards where there are,
+     else this card twice: each shard its own graph, pool and stream)
+     under BigintDivisionService at 2^18 bits (a 64-row request, 32
+     rows a shard, and a 96-row one split 64 + 32 across buckets) and
+     ModArithService at a 2^15-bit modulus (reduce and modmul on 256
+     rows, modexp on 64 rows with 256-bit exponents, two interleaved
+     moduli): every lane exact and equal to the unsharded service's,
+     shards x the cost model's launches per chunk (the graphs built
+     first), one precompute per modulus, the measured-vs-model tables
+     matching per shard; after phase 6b, both services' calls sharded
+     and unsharded in turns (timing_sharded: a record, not a claim);
+  8. the dry run: `repro_torch.launch.bigint_dryrun --limbs 16384
+     --insts 8192` builds and replays one 32-row shard of the
+     256-shard production layout at 2^18 bits: exact, with
+     divmod_launches(16384) launches, a roofline equal to the sum of
+     its launches' terms (obs/roofline.py over the cost model's work),
+     its compile seconds and peak memory; the record goes to
+     results/dryrun/bigint_div.json and into the report.
 
-The services of phases 4, 5, 5b, 5c and 5d run through their bucket
+The services of phases 4, 5, 5b, 5c, 5d and 7 run through their bucket
 graphs; where a phase counts a service call's launches exactly, it
 builds the service's graphs first (`profile_bucket`), since a build's
-eager warm-up launches too.
+eager warm-up launches too.  Phases 7 and 8 run after 5d, and 7's
+timing after 6b.
 
 The kernel launch counters are set to 0 just before each of phases 4,
-4b, 4c, 5, 5b, 5c and 5d and read just after it.  Details go to
+4b, 4c, 5, 5b, 5c, 5d, 7 and 8 and read just after it.  Details go to
 chiprun_out/chip_smoke.json.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, times and bounds.  Exits non-zero
@@ -142,11 +161,6 @@ MOD18_LANES = 4
 # modexp exponent limbs: 256-bit exponents, the ladder's depth cut to
 # fit the run's time limit (a full 2^15-bit exponent is ~41,000 modmuls)
 E_LIMBS = 16
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).  A
-# 16x16-bit limb product is 4 int8 sub-digit MACs = 8 int8 operations.
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
-OPS_PER_LIMB_PRODUCT = 8
 KERNELS = {
     "mul_batch": ("src/repro_torch/kernels/csrc/mul.cu",
                   "src/repro/kernels/bigmul.py:323"),
@@ -175,11 +189,22 @@ PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                                   "correct", "barrett"),
                 "pairs_path": ("mul_pairs",),
                 "frontend_chaos": ("mul_batch", "powdiff", "update",
-                                   "correct")}
+                                   "correct"),
+                "sharded_path": ("mul_batch", "powdiff", "update",
+                                 "correct", "barrett"),
+                "dryrun": ("powdiff", "update", "correct")}
 # limbs at 2^15 and 2^18 bits, the sizes of the frontend and pair phases
 M15, M18 = 2 ** 15 // 16, 2 ** 18 // 16
 # the wide division's limbs, past the CUDA-core finalization's ~29,000
 WIDE_LIMBS = 30000
+# the sharded phase: rows of its division requests at 2^18 bits (64:
+# 32 a shard, the 2^18 x 32 cell; 96 = 64 + 32 across buckets) and of
+# its modular requests at a 2^15-bit modulus
+SHARD_DIV_ROWS = (64, 96)
+SHARD_MOD_ROWS = {"reduce": 256, "modmul": 256, "modexp": 64}
+# the dry run: instances at 2^18 bits over the 256-shard layout (32 a
+# shard)
+DRYRUN_INSTS = 8192
 # the frontend's requests at 2^15 bits (one split across buckets)
 DIV_REQUESTS = (10, 70, 5)
 MOD_REQUESTS = (("reduce", 70), ("modmul", 20), ("modexp", 12),
@@ -256,19 +281,6 @@ def _divmod(args):
 def prec_of(x: int) -> int:
     """Significant base-2^16 limbs of x."""
     return -(-x.bit_length() // 16)
-
-
-def cut_products(a: int, b: int, n: int) -> int:
-    """Limb products i + j < n of an a-limb by a b-limb operand: the sum
-    over i < min(a, b) of min(max(a, b), max(0, n - i))."""
-    if not (a and b and n > 0):
-        return 0
-    a, b = min(a, b), max(a, b)
-    full = max(0, min(a, n - b + 1))
-    lo, hi = max(0, n - b + 1), min(a - 1, n - 1)
-    tri = (hi - lo + 1) * n - (lo + hi) * (hi - lo + 1) // 2 \
-        if hi >= lo else 0
-    return full * b + tri
 
 
 def host_map(fn, items) -> list:
@@ -369,7 +381,7 @@ class Smoke:
     def __init__(self, torch, build):
         from repro_torch.core import arith, bigint, modarith, shinv
         from repro_torch.kernels import bigmul, digitmma, fused, ops
-        from repro_torch.obs import costmodel
+        from repro_torch.obs import costmodel, roofline
         from repro_torch.serving import errors, faults, frontend, policy
         from repro_torch.serving.bigint_service import BigintDivisionService
         from repro_torch.serving.modexp_service import ModArithService
@@ -378,6 +390,7 @@ class Smoke:
         self.torch, self.build = torch, build
         self.A, self.bi, self.S, self.MA = arith, bigint, shinv, modarith
         self.F, self.K, self.CM, self.bigmul = fused, ops, costmodel, bigmul
+        self.RL = roofline
         self.D = digitmma
         self.sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.Service, self.ModService = BigintDivisionService, ModArithService
@@ -440,7 +453,9 @@ class Smoke:
                          ("modarith_path", self.modarith_path),
                          ("frontend_path", self.frontend_path),
                          ("pairs_path", self.pairs_path),
-                         ("frontend_chaos", self.frontend_chaos)):
+                         ("frontend_chaos", self.frontend_chaos),
+                         ("sharded_path", self.sharded_path),
+                         ("dryrun", self.dryrun)):
             self.build.reset_launch_counts()
             self.phase(name, fn)
             got = self.build.launch_counts()
@@ -458,6 +473,7 @@ class Smoke:
         self.phase("timing_pairs", self.timing_pairs)
         self.phase("timing_modarith", self.timing_modarith)
         self.phase("graphs", self.graphs)
+        self.phase("timing_sharded", self.timing_sharded)
         kernels = self.kernel_line(launches)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
@@ -732,11 +748,10 @@ class Smoke:
 
     # -- phase 5: timing -----------------------------------------------------
 
-    @staticmethod
-    def bound(ops_products, nbytes):
-        ops = OPS_PER_LIMB_PRODUCT * ops_products / PEAK_INT8_OPS
-        mem = nbytes / PEAK_BYTES
-        return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
+    def bound(self, products, nbytes):
+        """(ms, "operations" or "bytes"): obs/roofline.py's bound."""
+        s, by = self.RL.bound(products, nbytes)
+        return s * 1e3, by
 
     def timing(self):
         """Per precision: each kernel launch of the recorded divmod_batch
@@ -759,28 +774,22 @@ class Smoke:
                            st["active"])
                 row = dict(bits=bits, batch=batch, iter=i, win=win,
                            active=act)
-                # bytes the functions need: powdiff reads win limbs of v
-                # (from offset s) and of w, writes x at full width, and
-                # moves 4 scalars per lane; update reads win limbs of w
-                # and x and writes full width on an active lane, copies
-                # w on an inactive one, and reads 4 scalars per lane
-                pd_bytes = 4 * batch * (2 * win + fw + 4)
-                up_bytes = 4 * (act * (2 * win + fw)
-                                + (batch - act) * 2 * fw + 4 * batch)
-                pd_work, up_work, kept = self.step_products(st)
+                # limb products and bytes (obs/costmodel.py) on these
+                # lanes' significant limbs
+                pd, up, kept = self.step_work(st)
                 row["update_columns_kept"] = kept
                 items.append((row, "powdiff",
                               lambda a=pd_args, w=win: F.powdiff_cuda(
                                   *a, win=w),
                               lambda a=pd_args, w=win: F.powdiff_reference(
                                   *a, win=w),
-                              (pd_work, pd_bytes)))
+                              pd))
                 items.append((row, "update",
                               lambda a=up_args, w=win: F.update_cuda(
                                   *a, win=w),
                               lambda a=up_args, w=win: F.update_reference(
                                   *a, win=w),
-                              (up_work, up_bytes)))
+                              up))
             c = rec["correct"]
             W = c["u"].shape[1]
             cargs = (c["u"], c["v"], c["si"])
@@ -790,11 +799,10 @@ class Smoke:
             items.append((tail, "correct",
                           lambda: F.correct_cuda(*cargs, h=c["h"]),
                           lambda: F.correct_reference(*cargs, h=c["h"]),
-                          (self.correct_products(c),
-                           4 * batch * (5 * W + 1))))
+                          self.correct_work(c)))
             items.append((tail, "mul_batch", lambda: K.mul_batch(q, v, m),
                           lambda: K.mul_plain(q, v, m),
-                          (batch * m * (m + 1) // 2, 4 * batch * 3 * m)))
+                          self.CM.mul_work(batch, m, m, m)))
             dev = self.device_us([it[2] for it in items])
             last = len(rec["step"]) - 1          # the full-window launch
             for j, (row, name, fn, plain, work) in enumerate(items):
@@ -893,49 +901,37 @@ class Smoke:
         self.report["timing"] = rows
         self.agg = agg
 
-    def step_products(self, st):
-        """Limb products one powdiff and one update launch need on these
-        states: prec(vp) * prec(wq) per lane for powdiff; for update, on
-        each active lane, the products i + j < n of prec(wq) x prec(x)
-        limbs, n = min(prec(wq) + prec(x), max(h - 2m, 0) + win), where
-        the kernel's product stops; and the share of update's product
-        columns that n keeps."""
+    def step_work(self, st):
+        """(products, bytes) of one powdiff and one update launch on these
+        states (`costmodel.powdiff_work`/`update_work` over the lanes'
+        significant limbs of vp = shift(v, -s), wq and x in the window),
+        and the share of update's product columns its cut keeps."""
         A, win = self.A, st["win"]
+        batch, fw = st["v"].shape
         pv = A.prec(A.shift(st["v"], -st["s"])[:, :win]).tolist()
         pw = A.prec(st["w"][:, :win]).tolist()
         px = A.prec(st["x"][:, :win]).tolist()
         off = (st["h"] - 2 * st["m"]).tolist()
         act = st["active"].tolist()
-        pd = sum(a * b for a, b in zip(pv, pw))
-        up = cols = kept = 0
-        for a, b, o, on in zip(pw, px, off, act):
-            if not (on and a and b):
-                continue
-            n = min(a + b, max(o, 0) + win, 2 * win)
-            up += cut_products(a, b, n)
-            cols += a + b
-            kept += n
-        return pd, up, kept / cols if cols else None
+        up = self.CM.update_work(batch, fw, win, pw, px, off, act)
+        return (self.CM.powdiff_work(batch, fw, win, pv, pw), up[:2],
+                up[2])
 
-    def correct_products(self, c):
-        """Limb products one correct launch needs on these inputs, on each
-        lane with v != 0: u * si over prec(u) x prec(si) limbs below
-        column min(2W, h + W), then q * v below limb W over prec(q) x
-        prec(v) limbs, q = floor(u * si / B^h) cut to W (the kernel's q,
-        before the correction)."""
+    def correct_work(self, c):
+        """(products, bytes) of one correct launch on these inputs
+        (`costmodel.correct_work`): the lanes with v != 0, with q =
+        floor(u * si / B^h) cut to W (the kernel's q, before the
+        correction)."""
         ints = self.bi.batch_to_ints
-        W = c["u"].shape[1]
-        total = 0
+        batch, W = c["u"].shape
+        lanes = []
         for u, v, si, h in zip(ints(c["u"]), ints(c["v"]), ints(c["si"]),
                                c["h"].tolist()):
-            if v == 0:
-                continue
-            pu, ps, pv = prec_of(u), prec_of(si), prec_of(v)
-            q = ((u * si) >> (16 * h)) % (1 << (16 * W))
-            pq = prec_of(q)
-            total += cut_products(pu, ps, min(pu + ps, 2 * W, h + W))
-            total += cut_products(pq, pv, min(pq + pv, W))
-        return total
+            if v:
+                q = ((u * si) >> (16 * h)) % (1 << (16 * W))
+                lanes.append((prec_of(u), prec_of(si), prec_of(q),
+                              prec_of(v), h))
+        return self.CM.correct_work(batch, W, lanes)
 
     def rate(self, products, device_ms):
         """Limb products per second per SM over a kernel's device time."""
@@ -1274,22 +1270,17 @@ class Smoke:
     # -- phase 6b: timing of the modular path --------------------------------
 
     def barrett_work(self, L, ctx, m, lanes):
-        """(limb products, bytes) one reduce_shared launch needs: x * mu
-        over the nonzero widths of x and mu, q * v truncated to W
-        (products i + j < W over the nonzero widths of q and v); x and
-        the shared mu and v read once, r written at W."""
+        """(limb products, bytes) one reduce_shared launch needs
+        (`costmodel.barrett_work`): x * mu over the nonzero widths of x
+        and mu, q * v truncated to W over the nonzero widths of q and v,
+        q = floor(x * mu / B^h) cut to W."""
         MA, B = self.MA, 1 << 16
         W, h = MA.barrett_width(m), MA.barrett_h(m)
         mu = self.bi.to_int(self.bi.limbs_to_numpy(ctx.mu))
-        prec = lambda z: -(-z.bit_length() // 16)
-        nmu, nb, products = prec(mu), prec(L["v"]), 0
-        for xx in L["x"][:lanes]:
-            na = prec((xx * mu >> 16 * h) % B ** W)
-            t = min(na, max(0, W - nb + 1))     # rows i with i + nb <= W
-            products += prec(xx) * nmu + t * nb + (na - t) * W \
-                - (na - 1 + t) * (na - t) // 2
-        nbytes = 4 * (lanes * 2 * m + W + m + lanes * W)
-        return products, nbytes
+        rows = [(prec_of(xx), prec_of((xx * mu >> 16 * h) % B ** W))
+                for xx in L["x"][:lanes]]
+        return self.CM.barrett_work(lanes, m, rows, nmu=prec_of(mu),
+                                    nv=prec_of(L["v"]))
 
     def timing_modarith(self):
         """Per modulus size: one Barrett launch's device time (first, before
@@ -1315,7 +1306,7 @@ class Smoke:
             dms = [d / 1e3 for d in dev] if dev else [None] * 3
             work = self.barrett_work(mi["L"], ctx, m, batch)
             work64 = self.barrett_work(mi["L"], ctx, m, 64)
-            work_ab = (batch * m * m, 4 * batch * 4 * m)
+            work_ab = self.CM.mul_work(batch, m, m, 2 * m)
             row = dict(modulus_bits=bits, lanes=batch,
                        barrett_ms=self.time_ms(kern),
                        barrett_device_ms=dms[0] if dev else None)
@@ -2055,7 +2046,7 @@ class Smoke:
         for bits in (2 ** 15, 2 ** 18):
             u, v, q = self.main_inputs[bits]
             batch, m = q.shape
-            work = (batch * m * (m + 1) // 2, 4 * batch * 3 * m)
+            work = self.CM.mul_work(batch, m, m, m)
             kernels = (lambda: bm.mul_pairs(q, v, m),
                        lambda: bm.mul_batch_cuda(q, v, m))
             dev = self.device_us(list(kernels))
@@ -2121,6 +2112,192 @@ class Smoke:
             rate_per_sm=r18["mul_pairs_rate_per_sm"],
             call_busy_share=r18["mul_pairs_call_busy_share"])
         self.report["timing_pairs"] = rows
+
+    # -- phase 7: the sharded services ----------------------------------------
+
+    def two_shards(self):
+        """A mesh of two shards: two cards where there are, else this
+        card twice (each shard its own graph, pool and stream)."""
+        from repro_torch.launch.mesh import make_device_mesh, mesh_of
+        if self.torch.cuda.device_count() >= 2:
+            return make_device_mesh(2)
+        return mesh_of([self.dev, self.dev])
+
+    def sharded_path(self):
+        """BigintDivisionService at 2^18 bits and ModArithService at a
+        2^15-bit modulus over two shards, beside the same services
+        unsharded: every lane exact and equal to the unsharded answer,
+        shards x the cost model's launches per chunk (the bucket graphs
+        built first), one precompute per modulus."""
+        CM, mesh = self.CM, self.two_shards()
+        n = mesh.size
+        self.sharded = {"mesh": [str(d) for d in mesh.devices]}
+        div = self.Service(M18, batch_buckets=(32, 64), mesh=mesh)
+        one = self.Service(M18, batch_buckets=(32, 64), device=self.dev)
+        for svc in (div, one):
+            for b in (32, 64):
+                svc.profile_bucket(b)
+        for rows in SHARD_DIV_ROWS:
+            us, vs = operands(M18, rows, 19 + rows)
+            got, k = self.launched(lambda: div.divide(us, vs))
+            chunks = len(div.batcher.plan(rows))
+            self.expect(f"sharded divmod launches ({rows} rows)", k,
+                        n * chunks * CM.divmod_launches(M18))
+            if list(zip(*got)) != host_map(_divmod, zip(us, vs)):
+                raise AssertionError("sharded divmod inexact")
+            if got != one.divide(us, vs):
+                raise AssertionError("sharded divmod differs from the "
+                                     "unsharded service")
+            log(f"sharded division 2^18 bits, {rows} rows in {chunks} "
+                f"chunk(s) over {n} shards: {k} launches "
+                f"({n} x {chunks} x {CM.divmod_launches(M18)}), exact, "
+                f"equal to unsharded")
+        m = M15
+        kw = dict(e_limbs=E_LIMBS, batch_buckets=(64, 256))
+        mod = self.ModService(m, mesh=mesh, **kw)
+        mone = self.ModService(m, device=self.dev, **kw)
+        for svc in (mod, mone):
+            svc.profile_bucket("precompute", 1)
+            for op, rows in SHARD_MOD_ROWS.items():
+                svc.profile_bucket(op, rows)
+        moduli, want, cols = [], {}, {}
+        for seed in (151, 152):
+            L = mod_operands(m, 256, seed)
+            v = L["v"]
+            moduli.append(v)
+            cols[v] = {"reduce": (L["x"],), "modmul": (L["a"], L["b"]),
+                       "modexp": (L["a"][:64], L["e"][:64])}
+            want[v] = {"reduce": [x % v for x in L["x"]],
+                       "modmul": [a * b % v for a, b in
+                                  zip(L["a"], L["b"])],
+                       "modexp": pow_all((a, e, v) for a, e in
+                                         zip(*cols[v]["modexp"]))}
+        model = {"reduce": CM.barrett_launches(),
+                 "modmul": CM.modmul_launches(),
+                 "modexp": CM.modexp_launches(16 * E_LIMBS)}
+        for i, v in enumerate(moduli + moduli):
+            for op in SHARD_MOD_ROWS:
+                got, k = self.launched(
+                    lambda: getattr(mod, op)(*cols[v][op], v))
+                pre = CM.precompute_launches(m) if i < 2 and \
+                    op == "reduce" else 0
+                self.expect(f"sharded {op} launches", k,
+                            n * model[op] + pre)
+                if got != want[v][op]:
+                    raise AssertionError(f"sharded {op} inexact")
+                if got != getattr(mone, op)(*cols[v][op], v):
+                    raise AssertionError(f"sharded {op} differs from the "
+                                         f"unsharded service")
+        c = mod.stats()["ctx_cache"]
+        self.expect("sharded context cache (misses, hits)",
+                    (c["misses"], c["hits"]), (2, 10))
+        log(f"sharded ModArithService, 2^15-bit moduli x2 interleaved: "
+            f"reduce/modmul 256 rows, modexp 64 rows (256-bit "
+            f"exponents) over {n} shards: exact, equal to unsharded, "
+            f"{n} x model launches, one precompute per modulus")
+        from repro_torch.obs import report as R
+        for svc in (div, mod):
+            snap = svc.snapshot()
+            rows = R.measured_vs_model(snap)
+            log(R.render_measured_vs_model(snap))
+            if not all(r["match"] and r["model_launches"] for r in rows):
+                raise AssertionError("sharded measured-vs-model mismatch")
+        self.sharded.update(div=div, one=one, mod=mod, mone=mone, cols=cols,
+                            moduli=moduli)
+        self.report["sharded"] = dict(
+            mesh=self.sharded["mesh"],
+            shard_pool_bytes=[e.memory_bytes for e in div._fn(64).shards])
+
+    def guard_us(self, n=20000):
+        """Host microseconds per launch of `build.on_device` (the device
+        guard every wrapper runs its launch under) beside `stream_ptr`
+        alone (what a launch asked before the guard), on a tensor of the
+        current card."""
+        t = self.torch.zeros(1, device=self.dev)
+        out = {}
+        for name in ("stream_ptr", "on_device", "on_device", "stream_ptr"):
+            t0 = time.perf_counter()
+            if name == "on_device":
+                for _ in range(n):
+                    with self.build.on_device(t):
+                        pass
+            else:
+                for _ in range(n):
+                    self.build.stream_ptr(t)
+            out.setdefault(name, []).append(
+                (time.perf_counter() - t0) / n * 1e6)
+        return out
+
+    def timing_sharded(self):
+        """The sharded services' calls against the unsharded ones, in
+        turns (unsharded, sharded, sharded, unsharded), host clock to
+        the answer (packing included): a record, not a claim.  Also the
+        device guard's host cost per launch (`guard_us`)."""
+        sh = self.sharded
+        guard = self.guard_us()
+        log(f"device guard per launch (us, in turns): {guard}")
+        us, vs = operands(M18, 64, 83)
+        cases = [("divmod 2^18 x 64", lambda s: s.divide(us, vs), "div",
+                  "one")]
+        v = sh["moduli"][0]
+        for op, rows in SHARD_MOD_ROWS.items():
+            cases.append((f"{op} 2^15-bit modulus x {rows}",
+                          lambda s, op=op: getattr(s, op)(
+                              *sh["cols"][v][op], v), "mod", "mone"))
+        out = {}
+        for name, call, shd, base in cases:
+            ts = {"unsharded": [], "sharded": []}
+            for which in ("unsharded", "sharded", "sharded", "unsharded"):
+                svc = sh[shd if which == "sharded" else base]
+                call(svc)                              # warm
+                t0 = time.perf_counter()
+                call(svc)
+                ts[which].append((time.perf_counter() - t0) * 1e3)
+            out[name] = ts
+            log(f"sharded timing {name}: unsharded {ts['unsharded']} ms, "
+                f"sharded {ts['sharded']} ms (mesh {sh['mesh']})")
+        self.report["timing_sharded"] = dict(card=card_line(),
+                                             mesh=sh["mesh"], calls=out,
+                                             guard_us=guard)
+
+    # -- phase 8: the dry run ------------------------------------------------
+
+    def dryrun(self):
+        """`launch/bigint_dryrun.py --limbs 16384 --insts 8192`: one
+        32-row shard of the 256-shard production layout at 2^18 bits,
+        exact, with divmod_launches(16384) launches and a roofline equal
+        to the sum of its launches' terms (obs/roofline.py over
+        costmodel.divmod_work)."""
+        from repro_torch.launch import bigint_dryrun as DR
+        CM, RL = self.CM, self.RL
+        out = ROOT / "results" / "dryrun" / "bigint_div.json"
+        rec = DR.main(["--limbs", str(M18), "--insts", str(DRYRUN_INSTS),
+                       "--out", str(out)])
+        if not rec["exact"] or rec["status"] != "ok":
+            raise AssertionError("dry run inexact")
+        self.expect("dry run launches", rec["launches"]["per_shard"],
+                    CM.divmod_launches(M18))
+        self.expect("dry run shard rows", rec["rows_per_shard"],
+                    DRYRUN_INSTS // 256)
+        work = CM.divmod_work(M18, rec["rows_per_shard"])
+        per = [RL.roofline_terms([w]) for w in work]
+        for key in ("compute_s", "memory_s"):
+            total = sum(p[key] for p in per)
+            if abs(rec["roofline"][key] - total) > 1e-9 * total:
+                raise AssertionError(f"dry run {key} {rec['roofline'][key]}"
+                                     f" != the launches' sum {total}")
+        io = 4 * rec["rows_per_shard"] * M18 * 4
+        if rec["memory"]["peak_bytes_est"] < io:
+            raise AssertionError("dry run peak below its inputs and outputs")
+        bound_ms = sum(RL.bound(w[1], w[2])[0] for w in work) * 1e3
+        log(f"dry run 2^18 bits x {DRYRUN_INSTS} over 256 shards: one "
+            f"{rec['rows_per_shard']}-row shard, {rec['launches']} launches, "
+            f"compile {rec['compile_s']} s, peak {rec['memory']}, replay "
+            f"{rec['replay_s'] * 1e3:.3f} ms against the launches' bounds' "
+            f"sum {bound_ms:.4f} ms, roofline {rec['roofline']}")
+        self.report["dryrun"] = dict(
+            {k: rec[k] for k in rec if k != "launch_work"},
+            bound_sum_ms=bound_ms)
 
     def kernel_line(self, launches):
         """One entry per kernel.  The times and the bound are sums over

@@ -52,7 +52,9 @@ from . import shinv as S
 from repro_torch.kernels import digitmma as D, ops as K
 from repro_torch.obs import costmodel as CM
 
-MU_GUARD = 2    # guard digits above 2m in h (keeps qhat error in {-1,0,+1})
+# MU_GUARD (costmodel.MU_GUARD): guard digits above 2m in h (keeps the
+# qhat error in {-1, 0, +1})
+MU_GUARD = CM.MU_GUARD
 
 
 def barrett_h(m: int) -> int:
@@ -110,11 +112,12 @@ def check_width(device, m: int, impl: str | None = None) -> None:
     D.check_staging(device, impl, width, f"a {m}-limb modulus", need)
 
 
-def barrett_precompute(v: torch.Tensor,
-                       impl: str | None = None) -> BarrettContext:
+def barrett_precompute(v: torch.Tensor, impl: str | None = None,
+                       windowed: bool = True) -> BarrettContext:
     """One shinv at h = 2m + MU_GUARD: `costmodel.precompute_launches(m,
-    impl)` launches on the card.  v: (m,) for a shared context or
-    (batch, m), v >= 1."""
+    impl)` launches on the card, with the size-bucketed Refine windows
+    unless `windowed` is False (every iteration at the full width; the
+    same mu).  v: (m,) for a shared context or (batch, m), v >= 1."""
     rows = v[None] if v.ndim == 1 else v
     m = rows.shape[-1]
     width, h = barrett_width(m), barrett_h(m)
@@ -122,7 +125,8 @@ def barrett_precompute(v: torch.Tensor,
     rows = rows.to(DTYPE)
     vw = torch.nn.functional.pad(rows, (0, width - m)).contiguous()
     hs = torch.full((rows.shape[0],), h, dtype=DTYPE, device=v.device)
-    mu = S.shinv_batch(vw, hs, CM.precompute_iters(m), impl=impl)
+    mu = S.shinv_batch(vw, hs, CM.precompute_iters(m), windowed=windowed,
+                       impl=impl)
     k = A.prec(rows)
     if v.ndim == 1:
         return BarrettContext(v=rows[0], mu=mu[0], k=k[0])

@@ -32,10 +32,11 @@ import torch
 from .bigint import DTYPE, LOG_BASE, MASK, one_hot_pow
 from . import arith as A
 from repro_torch.kernels import digitmma as D, ops as K
-from repro_torch.obs.costmodel import refine_iters, refine_window
+from repro_torch.obs import telemetry as T
+from repro_torch.obs.costmodel import PAD, refine_iters, refine_window
 
 GUARD = 2   # guard digits g (paper: Refine line 16)
-PAD = 8     # extra limbs of internal headroom above M
+# PAD (costmodel.PAD): extra limbs of internal headroom above M
 
 
 def _initial_w0(V: torch.Tensor):
@@ -76,8 +77,9 @@ def _refine(v, h, k, w, *, width: int, iters_max: int, windowed: bool = True,
         active = i < need
         m = torch.clamp(torch.minimum(hk + 1 - l, l), min=0)
         s = torch.clamp(k - 2 * l + 1 - g, min=0)
-        w = K.fused_step(v, w, h=k + l + m - s + g, m=m, l=l, s=s,
-                         active=active, g=g, win=wi, impl=impl)
+        with T.scope(f"refine_iter_{i}"):
+            w = K.fused_step(v, w, h=k + l + m - s + g, m=m, l=l, s=s,
+                             active=active, g=g, win=wi, impl=impl)
         l = torch.where(active, l + m - 1, l)
     return A.shift(w, h - k - l - g)
 

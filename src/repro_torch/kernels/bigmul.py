@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core import arith as A
 from . import build, digitmma as D, ops
-from .build import check_limbs, stream_ptr
+from .build import check_limbs
 
 
 def mul_batch_cuda(u: torch.Tensor, v: torch.Tensor,
@@ -55,9 +55,11 @@ def mul_batch_cuda(u: torch.Tensor, v: torch.Tensor,
     scratch = torch.empty(batch * lib.mul_batch_scratch_bytes(out_width),
                           dtype=torch.uint8, device=u.device)
     cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(u.device)))
-    err = lib.mul_batch_launch(u.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               scratch.data_ptr(), batch, wu, wv, out_width,
-                               ctypes.byref(cluster), stream_ptr(u))
+    with build.on_device(u) as stream:
+        err = lib.mul_batch_launch(u.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), scratch.data_ptr(), batch,
+                                   wu, wv, out_width, ctypes.byref(cluster),
+                                   stream)
     build.check(err, "mul_batch kernel")
     build.count("mul_batch")
     D.last_cluster["mul_batch"] = cluster.value
@@ -111,9 +113,11 @@ def mulmod_pairs_cuda(u: torch.Tensor, v: torch.Tensor, l_max: int,
     lib = build.lib("pairs")
     tiles = -(-n // lib.mul_pairs_tile())
     pub = torch.empty(1 + batch * tiles, dtype=torch.int64, device=u.device)
-    err = lib.mul_pairs_launch(u.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               pub.data_ptr(), batch, u.shape[1], v.shape[1],
-                               wu, wv, n, out_width, stream_ptr(u))
+    with build.on_device(u) as stream:
+        err = lib.mul_pairs_launch(u.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), pub.data_ptr(), batch,
+                                   u.shape[1], v.shape[1], wu, wv, n,
+                                   out_width, stream)
     build.check(err, "mul_pairs kernel")
     build.count("mul_pairs")
     return out

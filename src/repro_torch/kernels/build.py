@@ -223,6 +223,19 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@contextmanager
+def on_device(t: torch.Tensor):
+    """Make t's card the current device for a launch and yield the
+    current stream of that card (as `stream_ptr`).  The C entry points
+    key their shared-memory attribute and occupancy cache by
+    `cudaGetDevice` and launch on the stream they are given, so every
+    launch runs inside this scope: with tensors on another card than
+    the current one, a launch would otherwise go out with a stream of
+    another device."""
+    with torch.cuda.device(t.device):
+        yield stream_ptr(t)
+
+
 def check_limbs(name: str, t: torch.Tensor, shape=None) -> None:
     """Raise unless t is a contiguous int32 CUDA tensor (of `shape`)."""
     if t.device.type != "cuda":

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core import arith as A
 from repro_torch.core.bigint import DTYPE, one_hot_pow
 from . import build, digitmma as D
-from .build import check_limbs, stream_ptr
+from .build import check_limbs
 from .ops import mul_plain
 
 
@@ -215,9 +215,10 @@ def _step_launch(lib, kernel: str, batch: int, full_w: int, win: int,
     scratch = torch.empty(batch * lib.step_scratch_bytes(win),
                           dtype=torch.uint8, device=device)
     cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(device)))
-    err = getattr(lib, f"{kernel}_launch")(
-        *ptrs, scratch.data_ptr(), batch, full_w, win, ctypes.byref(cluster),
-        stream_ptr(scratch))
+    with build.on_device(scratch) as stream:
+        err = getattr(lib, f"{kernel}_launch")(
+            *ptrs, scratch.data_ptr(), batch, full_w, win,
+            ctypes.byref(cluster), stream)
     build.check(err, f"{kernel} kernel")
     build.count(kernel)
     D.last_cluster[kernel] = cluster.value
@@ -286,10 +287,12 @@ def correct_cuda(u, v, si, *, h):
         scratch = torch.empty(batch * lib.correct_scratch_bytes(full_w),
                               dtype=torch.uint8, device=u.device)
         cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(u.device)))
-        err = lib.correct_launch(
-            u.data_ptr(), v.data_ptr(), si.data_ptr(), sc["h"].data_ptr(),
-            q.data_ptr(), r.data_ptr(), scratch.data_ptr(), batch, full_w,
-            ctypes.byref(cluster), stream_ptr(u))
+        with build.on_device(u) as stream:
+            err = lib.correct_launch(
+                u.data_ptr(), v.data_ptr(), si.data_ptr(),
+                sc["h"].data_ptr(), q.data_ptr(), r.data_ptr(),
+                scratch.data_ptr(), batch, full_w, ctypes.byref(cluster),
+                stream)
         build.check(err, "correct kernel")
         build.count("correct")
         D.last_cluster["correct"] = cluster.value
@@ -326,10 +329,11 @@ def barrett_cuda(x, mu, v, *, h: int):
         scratch = torch.empty(batch * lib.barrett_scratch_bytes(full_w),
                               dtype=torch.uint8, device=x.device)
         cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(x.device)))
-        err = lib.barrett_launch(
-            x.data_ptr(), mu.data_ptr(), v.data_ptr(), r.data_ptr(),
-            scratch.data_ptr(), batch, nx, strides["mu"], v.shape[-1],
-            strides["v"], full_w, h, ctypes.byref(cluster), stream_ptr(x))
+        with build.on_device(x) as stream:
+            err = lib.barrett_launch(
+                x.data_ptr(), mu.data_ptr(), v.data_ptr(), r.data_ptr(),
+                scratch.data_ptr(), batch, nx, strides["mu"], v.shape[-1],
+                strides["v"], full_w, h, ctypes.byref(cluster), stream)
         build.check(err, "barrett kernel")
         build.count("barrett")
         D.last_cluster["barrett"] = cluster.value

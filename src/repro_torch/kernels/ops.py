@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import arith as A
 from repro_torch.core.bigint import DTYPE, LOG_BASE, MASK
+from repro_torch.obs import telemetry as T
 
 # Limbs per tile of the plain product (the pair kernel has its own
 # column tile, `bigmul.PAIRS_TC`).
@@ -252,11 +253,13 @@ def fused_step(v, w, *, h, m, l, s, active, g: int, win: int,
     update); otherwise the plain composition with impl's product (two
     product launches under cuda_batched and cuda_pairs)."""
     from . import fused
-    if _fused(impl, v, w):
-        return fused.step_cuda(v, w, h=h, m=m, l=l, s=s, active=active,
-                               g=g, win=win)
-    return fused.step_reference(v, w, h=h, m=m, l=l, s=s, active=active,
-                                g=g, win=win, mul=product(impl))
+    with T.scope("fused_step"):
+        if _fused(impl, v, w):
+            return fused.step_cuda(v, w, h=h, m=m, l=l, s=s, active=active,
+                                   g=g, win=win)
+        return fused.step_reference(v, w, h=h, m=m, l=l, s=s,
+                                    active=active, g=g, win=win,
+                                    mul=product(impl))
 
 
 def fused_correct(u, v, si, *, h, impl: str | None = None):
@@ -264,9 +267,10 @@ def fused_correct(u, v, si, *, h, impl: str | None = None):
     (0, u).  One kernel launch under cuda_fused on CUDA, else the plain
     composition with impl's product (two products)."""
     from . import fused
-    if _fused(impl, u, v, si):
-        return fused.correct_cuda(u, v, si, h=h)
-    return fused.correct_reference(u, v, si, h=h, mul=product(impl))
+    with T.scope("fused_correct"):
+        if _fused(impl, u, v, si):
+            return fused.correct_cuda(u, v, si, h=h)
+        return fused.correct_reference(u, v, si, h=h, mul=product(impl))
 
 
 def fused_barrett(x, mu, v, *, h: int, impl: str | None = None):
@@ -276,6 +280,7 @@ def fused_barrett(x, mu, v, *, h: int, impl: str | None = None):
     One kernel launch under cuda_fused on CUDA, else the plain
     composition with impl's product (two products)."""
     from . import fused
-    if _fused(impl, x, mu, v):
-        return fused.barrett_cuda(x, mu, v, h=h)
-    return fused.barrett_reference(x, mu, v, h=h, mul=product(impl))
+    with T.scope("fused_barrett"):
+        if _fused(impl, x, mu, v):
+            return fused.barrett_cuda(x, mu, v, h=h)
+        return fused.barrett_reference(x, mu, v, h=h, mul=product(impl))

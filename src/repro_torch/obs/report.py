@@ -100,6 +100,9 @@ def _row(snapshot: dict, bucket: int, op: str, st: dict) -> dict:
         # (precompute) contracts; the other ops run against a cached
         # inverse
         "iters": iters(m) if iters else None,
+        # a sharded bucket's profile is one shard's: the model is per
+        # shard, and each of `shards` replays counts it at run time
+        "shards": st.get("shards", 1),
         "measured_launches": measured,
         "model_launches": model,
         "glue_ops": st["glue_ops"],
@@ -134,7 +137,7 @@ def render_measured_vs_model(snapshot: dict) -> str:
              f"device={snapshot.get('device', 'cuda')}) -- measured vs "
              f"cost model")
     return render_table(rows, columns=[
-        "bucket", "op", "device", "iters", "measured_launches",
+        "bucket", "op", "device", "shards", "iters", "measured_launches",
         "model_launches", "glue_ops", "match"], title=title)
 
 

@@ -15,10 +15,13 @@ names; each distinct label-value assignment is one series
 metric name, then label values): `Registry.collect` (plain data) and
 `Registry.to_lines` (`name{k=v,...} value`).
 
-`annotate` names a span in a `torch.profiler` trace
-(`torch.profiler.record_function`); it takes the place of the JAX
-package's `scope` and `annotate` (eager PyTorch has no trace time), and
-is a no-op unless profiling is switched on with `set_profiling(True)`.
+`scope` (inside the computation: each Refine iteration, each fused
+stage) and `annotate` (around a service's call) name ranges in a
+`torch.profiler` trace and in NVTX (`torch.profiler.record_function`),
+the counterparts of the JAX package's `scope` and `annotate`; both are
+no-ops unless profiling is switched on with `set_profiling(True)`.  A
+range is host-side only: it adds no kernel to a call or to a captured
+CUDA graph, so launch counts stay exact.
 """
 
 from __future__ import annotations
@@ -244,6 +247,15 @@ class Registry:
         return lines
 
 
+def merged_collect(*registries) -> list[dict]:
+    """One deterministic dump across several registries (a frontend's
+    queue and failure families beside its service's request families):
+    the families concatenated in name-sorted order; name collisions
+    stay separate entries (distinct owners are distinct sources)."""
+    fams = [fam for reg in registries for fam in reg.collect()]
+    return sorted(fams, key=lambda f: f["name"])
+
+
 def merged_lines(*registries) -> list[str]:
     """Line-protocol export across several registries (a frontend's
     queue and failure families beside its service's request
@@ -252,6 +264,20 @@ def merged_lines(*registries) -> list[str]:
     for reg in registries:
         out.extend(reg.to_lines())
     return out
+
+
+@contextlib.contextmanager
+def timer():
+    """Standalone monotonic timer: `with timer() as t: ...; t.seconds`
+    (host clock; the body must wait for the device where it matters)."""
+    class _T:
+        seconds = 0.0
+    t = _T()
+    t0 = time.perf_counter()
+    try:
+        yield t
+    finally:
+        t.seconds = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +299,15 @@ def profiling_enabled() -> bool:
 def annotate(name: str):
     """A named range around host code in a `torch.profiler` trace
     (`record_function`).  No-op unless profiling is switched on."""
+    if not _PROFILING:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
+def scope(name: str):
+    """A named range inside the computation (each Refine iteration, each
+    fused stage), `record_function` as `annotate`.  No-op unless
+    profiling is switched on."""
     if not _PROFILING:
         return contextlib.nullcontext()
     return torch.profiler.record_function(name)

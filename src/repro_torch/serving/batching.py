@@ -1,8 +1,9 @@
 """Request batching for the port's services: kernel plans, compiled
-bucket executables, bucket planning, padding and runtime metrics (the
-port of `KernelPlan`, `kernel_plan`, `CompiledBuckets`, `Batcher`,
-`pad_ints` and `ServiceMetrics` from `repro/serving/batching.py`; JAX's
-`resolve_impl` is `kernels/ops.py:check_impl`).
+bucket executables and their sharding over a device mesh, bucket
+planning, padding and runtime metrics (the port of `KernelPlan`,
+`kernel_plan`, `CompiledBuckets`, `sharded_jit`, `Batcher`, `pad_ints`
+and `ServiceMetrics` from `repro/serving/batching.py`; `resolve_impl`
+is `kernels/ops.py:check_impl`).
 
 A bucket is the batch size a request chunk is padded to.  What a
 service builds on the first use of an (op, bucket, impl) is an
@@ -16,6 +17,11 @@ The warm-up call also gives the bucket's static launch profile
 when a bucket compiles.  The JAX plan's TPU grid fields (block_b,
 grid_rows, grid_pairs, grid_scheduled, grid_steps, super_tile,
 revisit_passes) have no counterpart here and are dropped.
+
+Under a mesh (`launch/mesh.py:DeviceMesh`) a bucket's executable is a
+`ShardedExecutable`: one `Executable` per shard on the shard's device,
+the bucket's rows split equally over them and the rest replicated, as
+JAX's `sharded_jit` shards the batch axis and replicates the context.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ from repro_torch.kernels import ops as K
 from repro_torch.obs import costmodel as CM
 from repro_torch.obs import telemetry as T
 from repro_torch.utils import launch_stats as LS
+
+
+resolve_impl = K.check_impl
 
 
 class KernelPlan(NamedTuple):
@@ -89,6 +98,14 @@ class Executable:
         if self.device.type != "cuda":
             self.static = LS.trace_profile(fn, *fill)
             return
+        # build with the executable's card current: the side stream's
+        # context switches the device too, but only inside it, and the
+        # synchronize, the cache and the graph's pool below are that
+        # card's as well
+        with torch.cuda.device(self.device):
+            self._build(fn, fill)
+
+    def _build(self, fn, fill):
         self.inputs = [t.clone() for t in fill]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -131,6 +148,110 @@ class Executable:
             build.count_all(self.launches)
             out = tuple(o.clone() for o in self.outputs)
         return out[0] if self._single else out
+
+
+class ShardedExecutable:
+    """One (op, bucket, impl)'s executable over a `DeviceMesh`: an
+    `Executable` per shard, built on the shard's device over
+    bucket / shards rows, the counterpart of JAX's `sharded_jit`.
+
+    Each shard's Executable runs fn over `fill(device, rows)`.  A call
+    splits the arguments at `batched` (indices) on rows into equal shards, in
+    mesh order; every other argument is replicated: a dict {device:
+    tensor} gives each shard its own device's copy (the modular
+    service's cached context, copied to each device once), a tensor is
+    given to every shard as it is.  The shards are launched one after
+    another without a host sync, each from its own stream made current
+    on its device (each Executable runs on the caller's current
+    stream), and their outputs gathered in row order on the first
+    shard's device once the caller's stream there has waited on every
+    shard's.  Each shard's replay counts its own launches, so a call
+    counts shards x the per-shard model.  On the CPU the shards run in
+    turn.
+
+    `static` is one shard's static profile with `shards` (every shard
+    traces the same program), `launches` one shard's recorded
+    launches."""
+
+    def __init__(self, fn, fill, plan: KernelPlan, mesh, bucket: int,
+                 batched: tuple):
+        check_buckets((bucket,), mesh)
+        self.mesh = mesh
+        self.rows = bucket // mesh.size
+        self.batched = frozenset(batched)
+        self.shards = [Executable(fn, fill(dev, self.rows), plan)
+                       for dev in mesh.devices]
+        self.plan, self.device = plan, mesh.devices[0]
+        self.launches = self.shards[0].launches
+        self.static = dict(self.shards[0].static, shards=mesh.size)
+        self._cuda = self.device.type == "cuda"
+        self._streams = [torch.cuda.Stream(d) if self._cuda else None
+                         for d in mesh.devices]
+
+    def _shard_args(self, i: int, args) -> list:
+        dev, lo = self.mesh.devices[i], i * self.rows
+        out = []
+        for j, a in enumerate(args):
+            if j in self.batched:
+                out.append(a[lo:lo + self.rows])
+            else:
+                out.append(a[dev] if isinstance(a, dict) else a)
+        return out
+
+    def __call__(self, *args):
+        for j in self.batched:
+            if args[j].shape[0] != self.rows * self.mesh.size:
+                raise ValueError(f"argument {j} has {args[j].shape[0]} "
+                                 f"rows, expected "
+                                 f"{self.rows * self.mesh.size}")
+        if not self._cuda:
+            outs = [exe(*self._shard_args(i, args))
+                    for i, exe in enumerate(self.shards)]
+            return self._gather(outs)
+        callers = {d: torch.cuda.current_stream(d)
+                   for d in self.mesh.distinct}
+        outs = []
+        for i, (exe, stream) in enumerate(zip(self.shards, self._streams)):
+            dev = self.mesh.devices[i]
+            stream.wait_stream(callers[dev])
+            with torch.cuda.stream(stream):
+                outs.append(exe(*self._shard_args(i, args)))
+        for i, (out, stream) in enumerate(zip(outs, self._streams)):
+            caller = callers[self.mesh.devices[i]]
+            caller.wait_stream(stream)
+            for t in (out,) if isinstance(out, torch.Tensor) else out:
+                t.record_stream(caller)
+        return self._gather(outs)
+
+    def _gather(self, outs):
+        dev = self.device
+        if isinstance(outs[0], torch.Tensor):
+            return torch.cat([o.to(dev) for o in outs])
+        return tuple(torch.cat([o[k].to(dev) for o in outs])
+                     for k in range(len(outs[0])))
+
+
+def sharded(fn, fill, plan: KernelPlan, *, device, mesh=None,
+            bucket: int, batched: tuple):
+    """The bucket's executable: without a mesh one `Executable` on
+    `device` over `fill(device, bucket)`; under a mesh a
+    `ShardedExecutable` of one per shard over `fill(device, rows)` (the
+    counterpart of JAX's `sharded_jit`).  Raises ValueError where the
+    mesh's shard count does not divide the bucket."""
+    if mesh is None:
+        return Executable(fn, fill(device, bucket), plan)
+    return ShardedExecutable(fn, fill, plan, mesh, bucket, batched)
+
+
+def check_buckets(buckets, mesh) -> None:
+    """Raise ValueError for a bucket the mesh's shard count does not
+    divide (JAX raises on it when the bucket compiles)."""
+    if mesh is None:
+        return
+    bad = [b for b in buckets if b % mesh.size]
+    if bad:
+        raise ValueError(f"batch buckets {bad} do not split into "
+                         f"{mesh.size} equal shards")
 
 
 class CompiledBuckets:

@@ -2,9 +2,9 @@
 
 Requests are Python ints; the service validates them, packs each chunk
 of a request into a bucket-sized (bucket, m_limbs) limb batch on the
-host, runs `core.shinv.divmod_batch` with its impl on its device, and
-unpacks exact results.  The port of `repro/serving/bigint_service.py` without a
-mesh.
+host, runs `core.shinv.divmod_batch` with its impl on its device (or
+sharded over a mesh's devices), and unpacks exact results.  The port of
+`repro/serving/bigint_service.py`.
 
 Each (bucket, impl) runs one executable (`batching.CompiledBuckets`),
 built on its first use: on the card a CUDA graph of the whole division,
@@ -16,6 +16,12 @@ runtime counters every request records on `telemetry.registry`, for
 `obs/report.py:render_measured_vs_model`.  The fault-injection sites of
 serving/faults.py (compile, transfer, execute) fire when an injector is
 installed.
+
+Under `mesh=` (`launch/mesh.py:DeviceMesh`) each executable is a
+`batching.ShardedExecutable`: the bucket's rows split equally over the
+mesh's shards, each shard a graph of its own on its device.  The static
+profile is one shard's (with `shards`), and the runtime launch counters
+count every shard's replay.
 """
 
 from __future__ import annotations
@@ -41,19 +47,27 @@ class BigintDivisionService:
             plain versions); on the card a width past the impl's
             shared-memory staging raises ValueError here
             (`core.shinv.check_width`)
+    mesh:   an optional `launch/mesh.py:DeviceMesh` to shard each
+            bucket's rows over (it replaces `device`: the work runs on
+            the mesh's devices, gathered on its first); every bucket
+            must split into equal shards (ValueError here)
     faults: an optional serving/faults.FaultInjector
     """
 
     def __init__(self, m_limbs: int, batch_buckets=(64, 256, 1024),
-                 device="cuda", impl: str | None = None, faults=None):
+                 device="cuda", impl: str | None = None, faults=None,
+                 mesh=None):
         self.m = m_limbs
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh else torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("BigintDivisionService(device='cuda') needs "
                                "a CUDA device; pass device='cpu' to run "
                                "the plain versions on the CPU")
         self.impl = impl
-        S.check_width(self.device, m_limbs, impl)   # before any request
+        for dev in mesh.distinct if mesh else (self.device,):
+            S.check_width(dev, m_limbs, impl)       # before any request
+        BT.check_buckets(batch_buckets, mesh)
         self.batcher = BT.Batcher(batch_buckets)
         self.telemetry = BT.ServiceMetrics()
         self._fns = BT.CompiledBuckets()
@@ -85,19 +99,22 @@ class BigintDivisionService:
         E.check_operands("v", columns[1], lim, f"B^{self.m}")
         return n
 
-    def _fn(self, bucket: int, impl: str | None = None) -> BT.Executable:
+    def _fill(self, device, rows: int):
+        """pad_ints' fill (u = 0, v = 1) of `rows` rows on `device`."""
+        u = torch.zeros(rows, self.m, dtype=bi.DTYPE, device=device)
+        v = u.clone()
+        v[:, 0] = 1
+        return u, v
+
+    def _fn(self, bucket: int, impl: str | None = None):
         """The (bucket, impl) executable, built on its first use (the
         compile fault site fires before the build)."""
         eff = K.check_impl(impl or self.impl)
 
         def build():
-            plan = BT.kernel_plan(eff)
-            u = torch.zeros(bucket, self.m, dtype=bi.DTYPE,
-                            device=self.device)
-            v = u.clone()
-            v[:, 0] = 1                     # pad_ints' fill: u = 0, v = 1
-            exe = BT.Executable(partial(S.divmod_batch, impl=eff), (u, v),
-                                plan)
+            exe = BT.sharded(partial(S.divmod_batch, impl=eff), self._fill,
+                             BT.kernel_plan(eff), device=self.device,
+                             mesh=self.mesh, bucket=bucket, batched=(0, 1))
             self.static_profiles.setdefault(bucket, {})["divmod"] = exe.static
             return exe
         return self._fns.use("divmod", bucket, eff, K.check_impl(self.impl),
@@ -158,6 +175,7 @@ class BigintDivisionService:
             "m_limbs": self.m,
             "impl": K.check_impl(self.impl),
             "device": self.device.type,
+            "shards": self.mesh.size if self.mesh else 1,
             "iters": S.refine_iters(self.m),
             "buckets": BT.snapshot_buckets(self.kernel_plans,
                                            self.static_profiles),

@@ -8,8 +8,7 @@ request, and every step of a modexp ladder, reuses the cached shifted
 inverse.  Requests are validated, split into bucket-sized chunks and
 padded as in `BigintDivisionService`, with the same impl overrides,
 compiled bucket executables, static profiles and fault-injection sites
-(plus precompute).  The port of `repro/serving/modexp_service.py`
-without a mesh.
+(plus precompute).  The port of `repro/serving/modexp_service.py`.
 
 Each (op, bucket, impl) runs one executable (`batching.CompiledBuckets`):
 on the card a CUDA graph of the whole op, modexp's whole ladder
@@ -22,6 +21,15 @@ its compile site is the precompute fault site, which fires before it.
 `profile_bucket` builds an (op, bucket) executable without a request,
 and `snapshot()` carries each bucket's static profile per op (and the
 precompute's) for `obs/report.py:render_measured_vs_model`.
+
+Under `mesh=` (`launch/mesh.py:DeviceMesh`) each request executable is
+a `batching.ShardedExecutable` over the bucket's rows, and the context
+is replicated: a modulus's precompute runs once, on the mesh's first
+device, and its context is copied once to each other device and cached
+there beside it (one miss and one precompute per modulus, as JAX
+computes the replicated context once and places it); each shard copies
+its own device's context into its graph's static inputs, device to
+device.  An eviction drops every device's copy.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ class ModArithService:
 
     m_limbs:    storage width of moduli and residues (values < B^m_limbs)
     e_limbs:    storage width of modexp exponents (default m_limbs)
+    windowed:   size-bucketed Refine windows in the precompute (False:
+                every iteration at the full width; the same contexts)
     window_bits: modexp ladder window (must divide 16)
     max_cached_moduli: LRU bound on the contexts kept on the device
     device:     where the contexts live and the work runs ("cuda" needs
@@ -52,23 +62,32 @@ class ModArithService:
     impl:       the registry impl (`kernels/ops.py`; None = cuda_fused);
                 each endpoint's `impl=` overrides it per call.  The
                 precompute runs with the service's impl.
+    mesh:       an optional `launch/mesh.py:DeviceMesh` to shard each
+                bucket's rows over, the context replicated (it replaces
+                `device`); every bucket must split into equal shards
+                (ValueError here)
     faults:     an optional serving/faults.FaultInjector
     """
 
     def __init__(self, m_limbs: int, e_limbs: int | None = None,
                  window_bits: int = 4, batch_buckets=(64, 256, 1024),
                  max_cached_moduli: int = 64, device="cuda",
-                 impl: str | None = None, faults=None):
+                 impl: str | None = None, faults=None, mesh=None,
+                 windowed: bool = True):
         self.m = m_limbs
         self.e_limbs = e_limbs if e_limbs is not None else m_limbs
         self.window_bits = window_bits
-        self.device = torch.device(device)
+        self.windowed = windowed
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh else torch.device(device)
+        self.devices = mesh.distinct if mesh else (self.device,)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ModArithService(device='cuda') needs a "
                                "CUDA device; pass device='cpu' to run the "
                                "plain versions on the CPU")
         self.impl = impl
         K.check_impl(impl)
+        BT.check_buckets(batch_buckets, mesh)
         self.batcher = BT.Batcher(batch_buckets)
         self.telemetry = BT.ServiceMetrics()
         self._ctx_metric = self.telemetry.registry.counter(
@@ -79,7 +98,8 @@ class ModArithService:
         self.static_profiles: dict[int, dict] = {}  # bucket -> op -> profile
         self.precompute_profile: dict | None = None
         self.faults = faults
-        self._ctxs: OrderedDict[int, MA.BarrettContext] = OrderedDict()
+        # modulus -> {device: context}, every device of the mesh
+        self._ctxs: OrderedDict[int, dict] = OrderedDict()
         self._ctx_lock = threading.RLock()
         self.max_cached = max_cached_moduli
         self.ctx_hits = 0
@@ -107,9 +127,16 @@ class ModArithService:
                 f"modulus does not fit in {self.m} limbs")
 
     def context(self, v: int) -> MA.BarrettContext:
-        """The Barrett context for v on the service's device, LRU-cached.
-        The lock covers lookup, precompute, insert and eviction, so
-        concurrent requests against one modulus precompute it once."""
+        """The Barrett context for v on the service's (first) device,
+        LRU-cached."""
+        return self.contexts(v)[self.device]
+
+    def contexts(self, v: int) -> dict:
+        """{device: Barrett context for v} over the service's devices,
+        LRU-cached: precomputed once on the first device, copied once to
+        each other.  The lock covers lookup, precompute, copies, insert
+        and eviction, so concurrent requests against one modulus
+        precompute it once."""
         self.check_modulus(v)
         with self._ctx_lock:
             if v in self._ctxs:
@@ -124,12 +151,15 @@ class ModArithService:
             with T.annotate("modexp_service/precompute"):
                 ctx = MA.BarrettContext(*fn(
                     bi.limbs_from_numpy(bi.from_int(v, self.m), "cpu")))
-            self._ctxs[v] = ctx
+            ctxs = {d: ctx if d == self.device
+                    else MA.BarrettContext(*(t.to(d) for t in ctx))
+                    for d in self.devices}
+            self._ctxs[v] = ctxs
             while len(self._ctxs) > self.max_cached:
                 self._ctxs.popitem(last=False)
                 self.ctx_evictions += 1
                 self._ctx_metric.labels(event="eviction").inc()
-            return ctx
+            return ctxs
 
     # -- validation ---------------------------------------------------------
 
@@ -170,19 +200,20 @@ class ModArithService:
         def build():
             v = torch.zeros(self.m, dtype=bi.DTYPE, device=self.device)
             v[0] = 1                              # the modulus 1
-            exe = BT.Executable(partial(MA.barrett_precompute, impl=impl),
+            exe = BT.Executable(partial(MA.barrett_precompute, impl=impl,
+                                        windowed=self.windowed),
                                 (v,), BT.kernel_plan(impl))
             self.precompute_profile = exe.static
             return exe
         return self._pre.use("precompute", 1, impl, impl, build)
 
-    def _ctx_fill(self):
+    def _ctx_fill(self, device):
         """Shape-only context buffers (v = 1, mu = 0, k = 0)."""
-        v = torch.zeros(self.m, dtype=bi.DTYPE, device=self.device)
+        v = torch.zeros(self.m, dtype=bi.DTYPE, device=device)
         v[0] = 1
         mu = torch.zeros(MA.barrett_width(self.m), dtype=bi.DTYPE,
-                         device=self.device)
-        return v, mu, torch.zeros((), dtype=bi.DTYPE, device=self.device)
+                         device=device)
+        return v, mu, torch.zeros((), dtype=bi.DTYPE, device=device)
 
     def _op(self, op: str):
         """(fn(ctx, *columns, impl), column widths) of a request op."""
@@ -206,11 +237,16 @@ class ModArithService:
         def run(v, mu, k, *cols):
             return f(MA.BarrettContext(v, mu, k), *cols, impl=eff)
 
-        def build():
-            fill = self._ctx_fill() + tuple(
-                torch.zeros(bucket, w, dtype=bi.DTYPE, device=self.device)
+        def fill(device, rows):
+            return self._ctx_fill(device) + tuple(
+                torch.zeros(rows, w, dtype=bi.DTYPE, device=device)
                 for w in widths)
-            exe = BT.Executable(run, fill, BT.kernel_plan(eff))
+
+        def build():
+            exe = BT.sharded(run, fill, BT.kernel_plan(eff),
+                             device=self.device, mesh=self.mesh,
+                             bucket=bucket,
+                             batched=tuple(range(3, 3 + len(widths))))
             self.static_profiles.setdefault(bucket, {})[op] = exe.static
             return exe
         return self._fns.use(op, bucket, eff, K.check_impl(self.impl),
@@ -243,7 +279,10 @@ class ModArithService:
         eff = K.check_impl(impl or self.impl)
         _, widths = self._op(op)
         self.telemetry.record_request(op, n)
-        ctx = self.context(v)
+        ctxs = self.contexts(v)
+        # the context: replicated per device under a mesh
+        ctx = (tuple({d: c[i] for d, c in ctxs.items()} for i in range(3))
+               if self.mesh else ctxs[self.device])
         out: list[int] = []
         for lo, hi, bucket in self.batcher.plan(n):
             self._fire("transfer", op=op, bucket=bucket)
@@ -303,8 +342,10 @@ class ModArithService:
             "m_limbs": self.m,
             "e_limbs": self.e_limbs,
             "window_bits": self.window_bits,
+            "windowed": self.windowed,
             "impl": K.check_impl(self.impl),
             "device": self.device.type,
+            "shards": self.mesh.size if self.mesh else 1,
             "buckets": BT.snapshot_buckets(self.kernel_plans,
                                            self.static_profiles),
             "runtime": self.stats(),

@@ -932,3 +932,139 @@ def test_modexp_full_exponent_graph(dev):
     torch.cuda.synchronize()
     assert sum(build.launch_counts().values()) == (
         CM.precompute_launches(m) + CM.modexp_launches(16 * m))
+
+
+# ---------------------------------------------------------------------------
+# the multi-device path: sharded services, the current device, the dry run
+# ---------------------------------------------------------------------------
+
+def _launched(fn):
+    """fn()'s result and the launches it counted (after a synchronize)."""
+    build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, sum(build.launch_counts().values())
+
+
+def test_sharded_services_on_one_card_twice(dev):
+    """Both services over a mesh naming the card twice (one graph and
+    stream per shard): exact, equal to the unsharded services, shards x
+    the model's launches per chunk, one precompute per modulus, every
+    report row matching per shard."""
+    from repro_torch.launch.mesh import mesh_of
+    from repro_torch.obs import report as R
+    from repro_torch.serving.bigint_service import BigintDivisionService
+    from repro_torch.serving.modexp_service import ModArithService
+    mesh = mesh_of([dev, dev])
+    m = 2048
+    rnd = random.Random(77)
+    svc = BigintDivisionService(m, batch_buckets=(4, 8), mesh=mesh)
+    plain = BigintDivisionService(m, batch_buckets=(4, 8), device=dev)
+    for b in (4, 8):
+        svc.profile_bucket(b)
+    us = [rnd.randint(0, B ** m - 1) for _ in range(11)]
+    vs = [rnd.randint(1, B ** rnd.randint(1, m) - 1) for _ in range(11)]
+    got, n = _launched(lambda: svc.divide(us, vs))
+    assert list(zip(*got)) == [divmod(x, y) for x, y in zip(us, vs)]
+    assert got == plain.divide(us, vs)
+    assert n == 2 * 2 * CM.divmod_launches(m)          # 2 chunks x 2 shards
+
+    mod = ModArithService(m, e_limbs=1, batch_buckets=(4,), mesh=mesh)
+    mod.profile_bucket("precompute", 1)
+    for op in ("reduce", "modmul", "modexp"):
+        mod.profile_bucket(op, 4)
+    vs2 = [rnd.randint(B ** (m - 1), B ** m - 1), rnd.randint(3, B ** 9)]
+    a = [rnd.randint(0, B ** m - 1) for _ in range(4)]
+    e = [0, 1, 65535, rnd.randint(0, 65535)]
+    per_round = 2 * (CM.barrett_launches() + CM.modmul_launches()
+                     + CM.modexp_launches(16))
+    for i, v in enumerate(vs2 + vs2):
+        def calls():
+            return (mod.reduce([x * x for x in a], v),
+                    mod.modmul(a, a[::-1], v), mod.modexp(a, e, v))
+        (r, mm, me), n = _launched(calls)
+        assert r == [x * x % v for x in a]
+        assert mm == [x * y % v for x, y in zip(a, a[::-1])]
+        assert me == [pow(x, y, v) for x, y in zip(a, e)]
+        first = i < 2
+        assert n == per_round + first * CM.precompute_launches(m)
+    assert mod.stats()["ctx_cache"]["misses"] == 2
+    for snap in (svc.snapshot(), mod.snapshot()):
+        rows = R.measured_vs_model(snap)
+        assert all(r["match"] and r["model_launches"] for r in rows)
+        assert {r["shards"] for r in rows if r["op"] != "precompute"} == {2}
+
+
+def test_kernels_on_a_device_that_is_not_current(dev):
+    """Every kernel wrapper on tensors of the second card while the
+    first is current: equal to its plain version (each launch runs
+    under `build.on_device`); a stream context on the second card makes
+    it current; a service sharded over both cards is exact."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core import modarith as MA
+    from repro_torch.kernels import bigmul
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.serving.bigint_service import BigintDivisionService
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    s = torch.cuda.Stream(d1)
+    with torch.cuda.stream(s):
+        assert torch.cuda.current_device() == 1
+    assert torch.cuda.current_device() == 0
+    rnd = random.Random(9)
+    m = 130
+    u = _t([rnd.randint(0, B ** m - 1) for _ in range(5)], m, d1)
+    v = _t([rnd.randint(1, B ** m - 1) for _ in range(5)], m, d1)
+    assert torch.equal(K.mul_batch(u, v, 2 * m), K.mul_plain(u, v, 2 * m))
+    assert torch.equal(bigmul.mul_pairs(u, v, 2 * m),
+                       K.mul_plain(u, v, 2 * m))
+    q, r = S.divmod_batch(u, v)                    # steps + correct
+    qp, rp = S.divmod_batch(u, v, impl="blocked")
+    assert torch.equal(q, qp) and torch.equal(r, rp)
+    ctx = MA.barrett_precompute(v[0])
+    x = _t([rnd.randint(0, B ** (2 * m) - 1) for _ in range(5)], 2 * m, d1)
+    assert torch.equal(MA.reduce_shared(ctx, x),
+                       MA.reduce_shared(ctx, x, impl="blocked"))
+    assert torch.cuda.current_device() == 0
+    svc = BigintDivisionService(m, batch_buckets=(4,),
+                                mesh=make_device_mesh(2))
+    us = [rnd.randint(0, B ** m - 1) for _ in range(4)]
+    vs = [rnd.randint(1, B ** m - 1) for _ in range(4)]
+    assert list(zip(*svc.divide(us, vs))) == [divmod(a, b)
+                                              for a, b in zip(us, vs)]
+
+
+def test_dryrun_2p15(dev):
+    """One shard of 8,192 divisions over the 256-shard layout at 2^15
+    bits: exact, the model's launches, the cost model's roofline."""
+    from repro_torch.launch import bigint_dryrun as DR
+    from repro_torch.obs import roofline as RL
+    rec = DR.run(2048, 8192, device=dev)
+    assert rec["exact"] and rec["status"] == "ok"
+    assert rec["rows_per_shard"] == 32 and rec["shards"] == 256
+    assert rec["launches"]["per_shard"] == CM.divmod_launches(2048)
+    assert rec["roofline"] == RL.roofline_terms(CM.divmod_work(2048, 32))
+    assert rec["memory"]["peak_bytes_est"] > 4 * 32 * 2048 * 4
+    assert rec["capture_s"] is not None
+
+
+def test_scope_adds_no_launch(dev):
+    """With profiling on, a divmod and its captured graph launch the
+    model's kernels, no more."""
+    from repro_torch.obs import telemetry as T
+    from repro_torch.serving import batching as BT
+    m = 26
+    rnd = random.Random(5)
+    u = _t([rnd.randint(0, B ** m - 1) for _ in range(4)], m, dev)
+    v = _t([rnd.randint(1, B ** m - 1) for _ in range(4)], m, dev)
+    T.set_profiling(True)
+    try:
+        (q, r), n = _launched(lambda: S.divmod_batch(u, v))
+        exe = BT.Executable(S.divmod_batch, (u, v), BT.kernel_plan())
+        (q2, r2), n2 = _launched(lambda: exe(u, v))
+    finally:
+        T.set_profiling(False)
+    assert n == n2 == CM.divmod_launches(m)
+    assert sum(exe.launches.values()) == CM.divmod_launches(m)
+    assert torch.equal(q, q2) and torch.equal(r, r2)
