@@ -118,16 +118,37 @@ Phases, each of which raises on failure:
      divmod_launches(16384) launches, a roofline equal to the sum of
      its launches' terms (obs/roofline.py over the cost model's work),
      its compile seconds and peak memory; the record goes to
-     results/dryrun/bigint_div.json and into the report.
+     results/dryrun/bigint_div.json and into the report;
+  9. LM serving (`repro_torch.models`, `repro_torch.launch.serve`),
+     which launches none of the six kernels (the counts stay 0): (a) the
+     seven decoder-only archs, reduced, in float32, one set of weights
+     on the CPU and a copy on the card: prefill logits (rtol = atol =
+     1e-4), 8 greedy decode steps (1e-3, the bf16 KV cache) and their
+     tokens against the CPU's; (b) smollm-135m at its published width
+     and depth in bf16 and (c) phi3.5-moe at its published width with 2
+     of its 32 layers, each built on the card from seed 0 with a float32
+     copy of its weights: decode of a 64-token prompt against its
+     prefill (the copy at JAX's 2e-2, the bf16 model at 2^-4; a MoE at
+     a capacity that fits every slot, rows whose routing tips between
+     the paths counted and left out), every logit finite, 8 greedy
+     steps of bf16 against the copy (logits within 2^-4, tokens equal
+     where the copy's top-2 margin is clear of that), then prefill
+     (4 x 2,048 and 4 x 512) and decode (64 and 16 steps at batch 8
+     after the prefill's positions of cache history) timed with CUDA
+     events, tokens/s, the device's busy share, peak memory, the
+     dropped MoE slots at prefill and the bounds, and one layer's
+     chunked attention core against scaled_dot_product_attention; (d)
+     `python -m repro_torch.launch.serve` as child processes: the LM
+     demo and `--bigint` (256 limbs x 64, "all exact").
 
 The services of phases 4, 5, 5b, 5c, 5d and 7 run through their bucket
 graphs; where a phase counts a service call's launches exactly, it
 builds the service's graphs first (`profile_bucket`), since a build's
-eager warm-up launches too.  Phases 7 and 8 run after 5d, and 7's
+eager warm-up launches too.  Phases 7, 8 and 9 run after 5d, and 7's
 timing after 6b.
 
 The kernel launch counters are set to 0 just before each of phases 4,
-4b, 4c, 5, 5b, 5c, 5d, 7 and 8 and read just after it.  Details go to
+4b, 4c, 5, 5b, 5c, 5d, 7, 8 and 9 and read just after it.  Details go to
 chiprun_out/chip_smoke.json.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, times and bounds.  Exits non-zero
@@ -139,6 +160,8 @@ tracker).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -192,7 +215,8 @@ PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                                    "correct"),
                 "sharded_path": ("mul_batch", "powdiff", "update",
                                  "correct", "barrett"),
-                "dryrun": ("powdiff", "update", "correct")}
+                "dryrun": ("powdiff", "update", "correct"),
+                "lm_serve": ()}
 # limbs at 2^15 and 2^18 bits, the sizes of the frontend and pair phases
 M15, M18 = 2 ** 15 // 16, 2 ** 18 // 16
 # the wide division's limbs, past the CUDA-core finalization's ~29,000
@@ -209,6 +233,29 @@ DRYRUN_INSTS = 8192
 DIV_REQUESTS = (10, 70, 5)
 MOD_REQUESTS = (("reduce", 70), ("modmul", 20), ("modexp", 12),
                 ("reduce", 5))
+# phase 9, LM serving: the decoder-only archs (reduced, card against
+# CPU), and two at full width: (arch, layers (None: the published
+# depth), prefill batch x positions, decode batch and steps).  The decode
+# steps run at positions prefill..prefill + steps - 1 of a cache whose
+# first `prefill` positions hold random bf16 history.
+LM_ARCHS = ("smollm-135m", "qwen2-0.5b", "starcoder2-3b", "nemotron-4-340b",
+            "qwen2-vl-72b", "phi3.5-moe-42b-a6.6b", "arctic-480b")
+LM_FULL = (("smollm-135m", None, (4, 2048), 8, 64),
+           ("phi3.5-moe-42b-a6.6b", 2, (4, 512), 8, 16))
+LM_PROMPT = 64          # decode against prefill: prompt positions
+LM_GREEDY = 8           # bf16 against float32: greedy steps
+# card against CPU (float32): prefill, then decode (the bf16 KV cache
+# can round one element differently after a 1-ulp float32 difference)
+LM_TOL_F32, LM_TOL_DECODE = 1e-4, 1e-3
+# decode against prefill at full width in float32: JAX's own tolerance
+# for the check (tests/test_archs.py:test_decode_matches_forward_attention,
+# float32 configs)
+LM_TOL_JAX = 2e-2
+# bf16 at full width (decode against prefill, and against the float32
+# copy): the two paths' GEMMs differ in shape and so round their bf16
+# outputs differently, and 30 layers carry it to the logits (0.039 and
+# 0.046-0.051 measured, NVIDIA H100 80GB HBM3, 700 W): 2^-4
+LM_TOL_BF16 = 2 ** -4
 
 
 def log(*a):
@@ -455,7 +502,8 @@ class Smoke:
                          ("pairs_path", self.pairs_path),
                          ("frontend_chaos", self.frontend_chaos),
                          ("sharded_path", self.sharded_path),
-                         ("dryrun", self.dryrun)):
+                         ("dryrun", self.dryrun),
+                         ("lm_serve", self.lm_serve)):
             self.build.reset_launch_counts()
             self.phase(name, fn)
             got = self.build.launch_counts()
@@ -464,6 +512,9 @@ class Smoke:
                 if got.get(k, 0) < 1:
                     raise AssertionError(f"kernel {k} never launched on "
                                          f"the {name}")
+            if not PATH_KERNELS[name] and any(got.values()):
+                raise AssertionError(f"the {name} launched {got}: it "
+                                     "runs none of the six kernels")
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
             self.report.setdefault("path_launches", {})[name] = got
@@ -2298,6 +2349,362 @@ class Smoke:
         self.report["dryrun"] = dict(
             {k: rec[k] for k in rec if k != "launch_work"},
             bound_sum_ms=bound_ms)
+
+    # -- phase 9: LM serving --------------------------------------------------
+
+    def lm_serve(self):
+        """The decoder-only LM path (`repro_torch.models`), which
+        launches none of the six kernels: (a) each decoder-only arch,
+        reduced, in float32, one set of weights on the CPU and a copy on
+        the card: prefill logits, 8 greedy decode steps and their tokens
+        against the CPU's; (b)-(c) smollm-135m at full width and depth and
+        phi3.5-moe at full width, 2 layers, in bf16 (`lm_full`); (d)
+        `python -m repro_torch.launch.serve` for the LM demo and the
+        division service, as child processes."""
+        from repro_torch import configs as C
+        from repro_torch.models import transformer as T
+        rep = self.report["lm_serve"] = {"reduced": {}, "full": {}}
+        for arch in LM_ARCHS:
+            rep["reduced"][arch] = self.lm_reduced(C, T, arch)
+        for arch, layers, prefill, batch, steps in LM_FULL:
+            rep["full"][arch] = self.lm_full(C, T, arch, layers, prefill,
+                                             batch, steps)
+        rep["cli"] = self.lm_cli()
+
+    def lm_close(self, what, got, want, tol):
+        """Max |got - want| in float32; raises unless every element is
+        within atol = rtol = tol."""
+        torch = self.torch
+        got, want = got.float().cpu(), want.float().cpu()
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: max abs err {err} past "
+                                 f"rtol = atol = {tol}")
+        return err
+
+    def lm_reduced(self, C, T, arch):
+        torch = self.torch
+        cfg = C.get_config(arch).reduced()
+        cpu = T.init_params(cfg, 0, "cpu")
+        card = copy.deepcopy(cpu).to(self.dev)
+        gen = torch.Generator().manual_seed(0)
+        b, s = 2, LM_PROMPT
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+        batch = {"tokens": toks}
+        if cfg.embed_stub:
+            batch = {"embeds": torch.randn((b, s, cfg.d_model),
+                                           generator=gen)}
+        want = T.forward_prefill(cpu, batch)
+        got = T.forward_prefill(card, {k: v.to(self.dev)
+                                       for k, v in batch.items()})
+        rec = {"prefill_err": self.lm_close(f"{arch} prefill", got, want,
+                                            LM_TOL_F32)}
+        cc = T.init_cache(cfg, b, LM_GREEDY, "cpu")
+        gc = T.init_cache(cfg, b, LM_GREEDY, self.dev)
+        tc, errs = toks[:, 0], []
+        for i in range(LM_GREEDY):
+            lc, cc = T.forward_decode(cpu, cc, {"token": tc}, i)
+            lg, gc = T.forward_decode(card, gc, {"token": tc.to(self.dev)}, i)
+            errs.append(self.lm_close(f"{arch} decode step {i}", lg, lc,
+                                      LM_TOL_DECODE))
+            tc = lc[:, :cfg.vocab].argmax(-1)
+            if not torch.equal(lg[:, :cfg.vocab].argmax(-1).cpu(), tc):
+                raise AssertionError(f"{arch}: greedy tokens differ at "
+                                     f"step {i}")
+        rec["decode_err"] = max(errs)
+        log(f"lm {arch} reduced, card vs CPU (float32): prefill err "
+            f"{rec['prefill_err']:.3g}, {LM_GREEDY} decode steps err "
+            f"{rec['decode_err']:.3g}, greedy tokens equal")
+        return rec
+
+    def lm_full(self, C, T, arch, layers, prefill, batch, steps):
+        """One arch at its published width (and depth, or `layers`), bf16
+        weights from seed 0 built on the card, and a float32 copy of them:
+        decode of a prompt against its prefill (the copy at JAX's
+        tolerance, the bf16 model at bf16's); greedy steps of the bf16
+        model against the copy; then prefill and decode timed, the
+        device's busy share of each (torch.profiler), tokens/s, peak
+        memory, and the bounds."""
+        torch = self.torch
+        cfg = C.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, 0, self.dev)
+        torch.cuda.synchronize()
+        params = list(model.parameters())
+        rec = dict(layers=cfg.n_layers, build_s=time.perf_counter() - t0,
+                   n_params=sum(p.numel() for p in params),
+                   weight_bytes=sum(p.numel() * p.element_size()
+                                    for p in params))
+        m32 = copy.deepcopy(model).to(torch.float32)
+        m32.cfg = dataclasses.replace(cfg, dtype="float32",
+                                      param_dtype_str="float32")
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (batch, LM_PROMPT),
+                               generator=gen, device=self.dev)
+        t0 = time.perf_counter()
+        for name, m, tol in (("float32", m32, LM_TOL_JAX),
+                             ("bf16", model, LM_TOL_BF16)):
+            got = self.lm_decode_vs_prefill(T, m, prompt, tol)
+            rec.update({f"decode_vs_prefill_{name}_{k}": v
+                        for k, v in got.items()})
+        rec.update(self.lm_vs_f32(T, model, m32, prompt[:, 0]))
+        rec["checks_s"] = time.perf_counter() - t0
+        del m32
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec.update(self.lm_timing(T, model, cfg, prefill, batch, steps, gen))
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["timing_s"] = time.perf_counter() - t0
+        log(f"lm {arch} ({cfg.n_layers} layers, {rec['n_params']:,} "
+            f"params, bf16): {json.dumps(rec)}")
+        del model
+        torch.cuda.empty_cache()
+        return rec
+
+    def lm_decode_vs_prefill(self, T, model, prompt, tol):
+        """Step-by-step decode of `prompt` against its prefill: every
+        logit finite, the last position's logits within rtol = atol =
+        tol.  A MoE runs at a capacity factor that fits every slot (a
+        prefill routes all positions against one capacity and may drop
+        what one-token steps keep), and a row whose routing differs
+        between the two paths at any position (a router near-tie tipped
+        by rounding) is counted and left out; at least one row stays."""
+        torch = self.torch
+        cfg = model.cfg
+        check = copy.copy(model)            # the same modules, its own cfg
+        if cfg.n_experts:
+            check.cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        moe = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
+        b, s = prompt.shape
+        full = T.forward_prefill(check, {"tokens": prompt})
+        routed = [m.routing.experts.reshape(b, s, -1) for m in moe]
+        cache = T.init_cache(cfg, b, s, self.dev)
+        steps = [[] for _ in moe]
+        for i in range(s):
+            logits, cache = T.forward_decode(check, cache,
+                                             {"token": prompt[:, i]}, i)
+            for j, m in enumerate(moe):
+                steps[j].append(m.routing.experts)
+        if not (torch.isfinite(full).all() and torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+        same = torch.ones(b, dtype=torch.bool, device=self.dev)
+        for r, st in zip(routed, steps):
+            same &= (torch.stack(st, 1) == r).flatten(1).all(-1)
+        if not same.any():
+            raise AssertionError(f"{cfg.name}: every row routed otherwise "
+                                 "in decode than in prefill")
+        err = self.lm_close(f"{cfg.name} ({cfg.dtype}) decode vs prefill",
+                            logits[same], full[same], tol)
+        return dict(err=err, rows=b, routing_flipped_rows=int((~same).sum()))
+
+    def lm_vs_f32(self, T, model, m32, first):
+        """LM_GREEDY greedy steps of the bf16 model beside its float32
+        copy, both fed the float32 run's tokens.  A row whose MoE routing
+        differs between the two (a router near-tie tipped by bf16
+        activations: another expert, another output) is counted and left
+        out; on the other rows the logits agree within LM_TOL_BF16, and
+        the greedy tokens are equal wherever the float32 top-2 margin
+        exceeds twice that tolerance at the top logit (nearer ties may go
+        either way in bf16)."""
+        torch = self.torch
+        cfg = model.cfg
+        moe = [(a.moe, c.moe) for a, c in zip(model.blocks, m32.blocks)
+               if hasattr(a, "moe")]
+        b = first.shape[0]
+        c16 = T.init_cache(cfg, b, LM_GREEDY, self.dev)
+        c32 = T.init_cache(m32.cfg, b, LM_GREEDY, self.dev)
+        tok, err, equal, clear_n, flipped, differ = first, 0.0, 0, 0, 0, []
+        worst = 0.0             # the widest float32 margin bf16 crossed
+        for i in range(LM_GREEDY):
+            l16, c16 = T.forward_decode(model, c16, {"token": tok}, i)
+            l32, c32 = T.forward_decode(m32, c32, {"token": tok}, i)
+            l16, l32 = l16[:, :cfg.vocab].float(), l32[:, :cfg.vocab]
+            same = torch.ones(b, dtype=torch.bool, device=self.dev)
+            for a, c in moe:
+                same &= (a.routing.experts == c.routing.experts).all(-1)
+            flipped += int((~same).sum())
+            err = max(err, (l16 - l32)[same].abs().max().item()
+                      if same.any() else 0.0)
+            if not torch.allclose(l16[same], l32[same], rtol=LM_TOL_BF16,
+                                  atol=LM_TOL_BF16):
+                differ.append(i)
+            top2 = l32.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            clear = same & (margin > 2 * LM_TOL_BF16 * (1 + top2[:, 0].abs()))
+            a16, a32 = l16.argmax(-1), l32.argmax(-1)
+            if not torch.equal(a16[clear], a32[clear]):
+                differ.append(f"token at step {i}")
+            if (a16 != a32).any():
+                worst = max(worst, margin[a16 != a32].max().item())
+            equal += int((a16 == a32).sum())
+            clear_n += int(clear.sum())
+            tok = a32
+        rec = dict(bf16_vs_f32_err=err, greedy_equal=equal,
+                   greedy_total=LM_GREEDY * b, greedy_clear=clear_n,
+                   routing_flipped_rows=flipped, widest_crossed_margin=worst)
+        if differ:
+            raise AssertionError(f"{cfg.name}: bf16 against float32 "
+                                 f"differs at {differ}: {rec}")
+        return rec
+
+    def lm_timing(self, T, model, cfg, prefill, batch, steps, gen):
+        torch = self.torch
+        pb, ps = prefill
+        toks = torch.randint(0, cfg.vocab, (pb, ps), generator=gen,
+                             device=self.dev)
+
+        def run_prefill():
+            return T.forward_prefill(model, {"tokens": toks})
+
+        prefill_ms = self.time_ms(run_prefill)
+        moe = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
+        run_prefill()
+        dropped = sum(int((~m.routing.keep).sum()) for m in moe)
+        kept = pb * ps * cfg.moe_top_k * len(moe) - dropped
+        cache = T.init_cache(cfg, batch, ps + steps, self.dev)
+        for st in cache:                # the prefill's positions: history
+            for t in st.values():
+                t[:, :ps].normal_(generator=gen)
+        first = torch.randint(0, cfg.vocab, (batch,), generator=gen,
+                              device=self.dev)
+
+        def run_decode(n=steps, events=None, routed=None):
+            """n greedy steps; each step's CUDA events into `events`, the
+            MoE layers' routed experts per step into `routed`."""
+            tok = first
+            for i in range(n):
+                if events is not None:
+                    events.append((torch.cuda.Event(enable_timing=True),
+                                   torch.cuda.Event(enable_timing=True)))
+                    events[-1][0].record()
+                logits, _ = T.forward_decode(model, cache, {"token": tok},
+                                             ps + i)
+                tok = logits[:, :cfg.vocab].argmax(-1)
+                if events is not None:
+                    events[-1][1].record()
+                if routed is not None:
+                    routed.append(sum(int(m.routing.experts.unique().numel())
+                                      for m in moe))
+            return tok
+
+        experts, step_ms = [], []
+        run_decode(routed=experts)           # warm-up
+        run_decode(events=step_ms)
+        torch.cuda.synchronize()
+        decode_ms = statistics.median(a.elapsed_time(b) for a, b in step_ms)
+        prof_p = self.device_share(run_prefill)
+        prof_n = min(steps, LM_GREEDY)
+        prof_d = self.device_share(lambda: run_decode(prof_n))
+        # bounds: prefill's weight products per position, its causal
+        # attention (the chunked core also computes the masked half) and
+        # the last position's head; decode's weights (a MoE's routed
+        # experts only), the cache positions each step attends to and
+        # the head
+        d, hd, h, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        vp = T.vocab_padded(cfg)
+        proj = d * hd * (h + 2 * hkv) + h * hd * d
+        ffn_mats = 3 if cfg.act == "swiglu" else 2
+        mlp = ffn_mats * d * cfg.d_ff
+        expert = ffn_mats * d * cfg.moe_d_ff
+        n_mlp = sum(1 for blk in model.blocks if hasattr(blk, "mlp"))
+        flops = 2 * pb * ps * cfg.n_layers * proj \
+            + 2 * pb * ps * n_mlp * mlp \
+            + 2 * kept * expert + 2 * pb * ps * len(moe) * d * cfg.n_experts \
+            + 2 * cfg.n_layers * pb * ps * (ps + 1) * h * hd \
+            + 2 * pb * d * vp
+        psize = 2                            # bf16
+        all_bytes = sum(p.numel() * p.element_size()
+                        for p in model.parameters())
+        p_bound = self.RL.flop_bound(flops, all_bytes)
+        expert_bytes = psize * expert
+        if moe:
+            routed = statistics.mean(experts)
+            w_bytes = all_bytes - len(moe) * cfg.n_experts * expert_bytes \
+                + routed * expert_bytes
+        else:
+            routed, w_bytes = None, all_bytes
+        kv = 2 * cfg.n_layers * batch * hkv * hd * 2 * \
+            statistics.mean(ps + i + 1 for i in range(steps))
+        d_bound = self.RL.flop_bound(2 * batch * (w_bytes / psize),
+                                     w_bytes + kv + batch * vp * psize)
+        rec = dict(
+            prefill=f"{pb} x {ps}", prefill_ms=prefill_ms,
+            prefill_tokens_s=pb * ps / prefill_ms * 1e3,
+            prefill_busy_share=prof_p["device_busy_share"],
+            prefill_host_share=None if prof_p["device_busy_share"] is None
+            else 1 - prof_p["device_busy_share"],
+            prefill_flops=flops, prefill_bound_ms=p_bound[0] * 1e3,
+            prefill_bound_by=p_bound[1],
+            decode=f"{steps} steps at batch {batch}, positions {ps}.."
+                   f"{ps + steps - 1} of a {ps + steps}-position cache",
+            decode_ms_per_step=decode_ms,
+            decode_tokens_s=batch / decode_ms * 1e3,
+            decode_busy_share=prof_d["device_busy_share"],
+            decode_host_share=None if prof_d["device_busy_share"] is None
+            else 1 - prof_d["device_busy_share"],
+            decode_device_ms_per_step=None if prof_d["device_ms"] is None
+            else prof_d["device_ms"] / prof_n,
+            decode_bytes=w_bytes + kv, decode_bound_ms=d_bound[0] * 1e3,
+            decode_bound_by=d_bound[1], routed_experts_per_step=routed,
+            prefill_dropped=dropped if moe else None,
+            prefill_slots=pb * ps * cfg.moe_top_k * len(moe) if moe
+            else None)
+        rec.update(self.lm_sdpa(T, cfg, pb, ps, gen))
+        return rec
+
+    def lm_sdpa(self, T, cfg, b, s, gen):
+        """A yardstick for a later PR: one layer's chunked attention core
+        at the prefill shape against `scaled_dot_product_attention` on the
+        same bf16 q, k, v (causal, kv heads repeated), and their max
+        difference."""
+        torch = self.torch
+        from repro_torch.models import layers as L
+        shape = (b, s, cfg.n_heads, cfg.head_dim)
+        q, k, v = (torch.randn(shape, generator=gen, device=self.dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+
+        def core():
+            return L.attn_core_chunked(q, k, v, cfg.attn_chunk)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True).transpose(1, 2)
+
+        err = (core().float() - sdpa().float()).abs().max().item()
+        return dict(attn_core_ms=self.time_ms(core),
+                    sdpa_ms=self.time_ms(sdpa), attn_core_vs_sdpa_err=err)
+
+    def lm_cli(self):
+        """`python -m repro_torch.launch.serve` as child processes on the
+        card: the LM demo (reduced smollm, 32 tokens) and the division
+        service (--bigint, 256 limbs x 64), each exiting 0, the second
+        printing "all exact"."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = {}
+        for name, extra, want in (
+                ("lm", ["--arch", "smollm-135m", "--tokens", "32"],
+                 "decoded 32 tokens"),
+                ("bigint", ["--bigint", "--limbs", "256", "--batch", "64"],
+                 "all exact")):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m",
+                                "repro_torch.launch.serve", *extra],
+                               env=env, cwd=ROOT, capture_output=True,
+                               text=True, timeout=300)
+            if r.returncode != 0 or want not in r.stdout:
+                raise AssertionError(f"serve {' '.join(extra)}: rc "
+                                     f"{r.returncode}\n{r.stdout[-2000:]}"
+                                     f"\n{r.stderr[-2000:]}")
+            out[name] = dict(seconds=time.perf_counter() - t0,
+                             stdout=r.stdout.strip().splitlines())
+            log(f"serve {' '.join(extra)}: {out[name]['stdout']}")
+        return out
 
     def kernel_line(self, launches):
         """One entry per kernel.  The times and the bound are sums over

@@ -1,0 +1,10 @@
+"""phi3.5-moe-42b-a6.6b [hf:microsoft/Phi-3.5-MoE-instruct; hf]."""
+from . import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=6400, vocab=32064, n_experts=16, moe_top_k=2, moe_d_ff=6400,
+    act="swiglu", rope="rope", norm="layernorm",
+    source="hf:microsoft/Phi-3.5-MoE-instruct",
+))

@@ -1,4 +1,5 @@
-"""Launch layouts and the dry run of the paper's workload: `mesh`
-(device meshes for the sharded services, the production layout as shard
-counts) and `bigint_dryrun` (one shard of batched division on the
-production layout, with its roofline)."""
+"""Launch layouts and entry points: `mesh` (device meshes for the
+sharded services, the production layout as shard counts),
+`bigint_dryrun` (one shard of batched division on the production
+layout, with its roofline) and `serve` (the LM decode demo and the
+division service from the command line)."""

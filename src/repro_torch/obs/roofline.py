@@ -15,6 +15,7 @@ limit (a card set lower runs slower: state its limit beside any share).
 from __future__ import annotations
 
 PEAK_INT8_OPS = 1979e12          # int8 tensor-core operations per second
+PEAK_BF16_FLOPS = 989e12         # bf16 tensor-core FLOP/s (the LM path)
 PEAK_BYTES = 3.35e12             # HBM3 bytes per second
 OPS_PER_LIMB_PRODUCT = 8
 
@@ -24,6 +25,14 @@ def bound(products: int, nbytes: int) -> tuple[float, str]:
     take for `products` limb products that move `nbytes`, the larger of
     the two times, and which of them sets it."""
     ops = OPS_PER_LIMB_PRODUCT * products / PEAK_INT8_OPS
+    mem = nbytes / PEAK_BYTES
+    return max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
+def flop_bound(flops: float, nbytes: int) -> tuple[float, str]:
+    """(seconds, "operations" or "bytes") for `flops` bf16 tensor-core
+    FLOPs that move `nbytes`: the LM path's bound."""
+    ops = flops / PEAK_BF16_FLOPS
     mem = nbytes / PEAK_BYTES
     return max(ops, mem), "operations" if ops >= mem else "bytes"
 
