@@ -120,26 +120,35 @@ Phases, each of which raises on failure:
      its compile seconds and peak memory; the record goes to
      results/dryrun/bigint_div.json and into the report;
   9. LM serving (`repro_torch.models`, `repro_torch.launch.serve`),
-     which launches none of the six kernels (the counts stay 0): (a) the
-     seven decoder-only archs, reduced, in float32, one set of weights
-     on the CPU and a copy on the card: prefill logits (rtol = atol =
-     1e-4), 8 greedy decode steps (1e-3, the bf16 KV cache) and their
-     tokens against the CPU's; (b) smollm-135m at its published width
-     and depth in bf16 and (c) phi3.5-moe at its published width with 2
-     of its 32 layers, each built on the card from seed 0 with a float32
-     copy of its weights: decode of a 64-token prompt against its
-     prefill (the copy at JAX's 2e-2, the bf16 model at 2^-4; a MoE at
-     a capacity that fits every slot, rows whose routing tips between
-     the paths counted and left out), every logit finite, 8 greedy
-     steps of bf16 against the copy (logits within 2^-4, tokens equal
-     where the copy's top-2 margin is clear of that), then prefill
-     (4 x 2,048 and 4 x 512) and decode (64 and 16 steps at batch 8
-     after the prefill's positions of cache history) timed with CUDA
-     events, tokens/s, the device's busy share, peak memory, the
-     dropped MoE slots at prefill and the bounds, and one layer's
-     chunked attention core against scaled_dot_product_attention; (d)
-     `python -m repro_torch.launch.serve` as child processes: the LM
-     demo and `--bigint` (256 limbs x 64, "all exact").
+     which launches none of the six kernels (the counts stay 0): (a)
+     all ten archs, reduced, in float32, one set of weights on the CPU
+     and a copy on the card: prefill logits (rtol = atol = 1e-4), 8
+     greedy decode steps (1e-3, the bf16 KV cache) and their tokens
+     against the CPU's (whisper over the cross cache its encoder fills
+     from enc_seq frames; rwkv at 128 positions, its chunked WKV
+     form); (b) smollm-135m, rwkv6-7b and whisper-medium at their
+     published width and depth, phi3.5-moe at its published width with
+     2 of 32 layers and jamba-1.5-large at its published widths in the
+     2-layer ("m", "a") unit, in bf16, each built on the card from seed
+     0, all but Jamba with a float32 copy of its weights: decode of a
+     64-token prompt (128 for rwkv) against its prefill (the copy at
+     JAX's 2e-2, the bf16 model at 2^-4; a MoE at a capacity that fits
+     every slot, its decode steps given the prefill's expert ids so
+     every row is compared; rwkv on its first 4, 8, 16 and 32 layers in
+     float32 and its first 4 in bf16, each within its limit,
+     LM_WKV_F32), every logit finite, 8 greedy steps of bf16 against the
+     copy (logits within 2^-4, tokens equal where the copy's top-2
+     margin is clear of that; not for rwkv);
+     (c) prefill (4 x 2,048, 4 x 448 with the encoder over 4 x 1,500
+     frames, 4 x 512) and decode (64 or 16 steps at batch 8 after the
+     prefill's positions of history) timed with CUDA events, tokens/s,
+     the device's busy share, peak memory, the dropped MoE slots at
+     prefill and the bounds (`lm_bounds`), and one layer's chunked
+     attention core against scaled_dot_product_attention where the arch
+     has attention; (d) as child processes started together, `python -m
+     repro_torch.launch.serve` for the LM demo (smollm, and rwkv6-7b)
+     and `--bigint` (256 limbs x 64, "all exact"), and the long-context
+     RWKV example.  The phase prints its seconds per part.
 
 The services of phases 4, 5, 5b, 5c, 5d and 7 run through their bucket
 graphs; where a phase counts a service call's launches exactly, it
@@ -171,6 +180,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ProcessPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
@@ -233,16 +243,26 @@ DRYRUN_INSTS = 8192
 DIV_REQUESTS = (10, 70, 5)
 MOD_REQUESTS = (("reduce", 70), ("modmul", 20), ("modexp", 12),
                 ("reduce", 5))
-# phase 9, LM serving: the decoder-only archs (reduced, card against
-# CPU), and two at full width: (arch, layers (None: the published
-# depth), prefill batch x positions, decode batch and steps).  The decode
-# steps run at positions prefill..prefill + steps - 1 of a cache whose
-# first `prefill` positions hold random bf16 history.
+# phase 9, LM serving: every registered arch (reduced, card against
+# CPU), and five at published width: (arch, the config's cuts (none:
+# the published depth), prefill batch x positions, decode batch and
+# steps, whether a float32 copy is checked beside it).  The decode steps run at positions
+# prefill..prefill + steps - 1 after a history of `prefill` positions:
+# random bf16 K/V in the attention caches, random recurrent states, and
+# whisper's cross cache filled by its encoder from random frames.
+# Jamba's float32 copy (~48 GB beside its 24 GB) does not fit the card:
+# its float32 check is the reduced one of (a).
 LM_ARCHS = ("smollm-135m", "qwen2-0.5b", "starcoder2-3b", "nemotron-4-340b",
-            "qwen2-vl-72b", "phi3.5-moe-42b-a6.6b", "arctic-480b")
-LM_FULL = (("smollm-135m", None, (4, 2048), 8, 64),
-           ("phi3.5-moe-42b-a6.6b", 2, (4, 512), 8, 16))
+            "qwen2-vl-72b", "phi3.5-moe-42b-a6.6b", "arctic-480b",
+            "rwkv6-7b", "jamba-1.5-large-398b", "whisper-medium")
+LM_FULL = (("smollm-135m", {}, (4, 2048), 8, 64, True),
+           ("phi3.5-moe-42b-a6.6b", {"n_layers": 2}, (4, 512), 8, 16, True),
+           ("rwkv6-7b", {}, (4, 2048), 8, 16, True),
+           ("whisper-medium", {}, (4, 448), 8, 16, True),
+           ("jamba-1.5-large-398b", {"n_layers": 2, "layer_pattern":
+                                     ("m", "a")}, (4, 512), 8, 16, False))
 LM_PROMPT = 64          # decode against prefill: prompt positions
+LM_PROMPT_CHUNKED = 128  # ... for RWKV: its chunked WKV prefill form
 LM_GREEDY = 8           # bf16 against float32: greedy steps
 # card against CPU (float32): prefill, then decode (the bf16 KV cache
 # can round one element differently after a 1-ulp float32 difference)
@@ -256,6 +276,23 @@ LM_TOL_JAX = 2e-2
 # outputs differently, and 30 layers carry it to the logits (0.039 and
 # 0.046-0.051 measured, NVIDIA H100 80GB HBM3, 700 W): 2^-4
 LM_TOL_BF16 = 2 ** -4
+# RWKV-6 at rwkv6-7b's full width, decode against prefill on the first n
+# layers of the same weights (`transformer.first_layers`).  Two evaluation
+# orders of a deep random-weight RWKV drift apart with depth, in JAX as
+# in the port: float32 at 32 layers on the CPU on JAX's weights, 0.0026
+# in JAX and 0.0045 in the port at d_model 512 (tests/test_torch_lm_rwkv
+# .py::test_deep_decode_matches_prefill).  On the card the float32 copy
+# read 4.3e-5, 3.2e-4, 0.0235 and 0.201 at 4, 8, 16 and 32 layers
+# (NVIDIA H100 80GB HBM3, 700 W; the same on every run): it is held at
+# JAX's tolerance where the reading lies under it and, deeper, at the
+# next power of two above the reading (LM_WKV_F32, depth -> limit).  The
+# bf16 model on the first LM_WKV_LAYERS layers read 0.090 (bf16 puts
+# RWKV's logits 0.19 from float32's there, past LM_TOL_BF16): held at
+# LM_TOL_WKV_BF16; at the full depth its logits finite.
+# tests/test_torch_lm_rwkv.py holds the port's bf16 RWKV against JAX's.
+LM_WKV_LAYERS = 4
+LM_WKV_F32 = {4: LM_TOL_JAX, 8: LM_TOL_JAX, 16: 2 ** -5, 32: 2 ** -2}
+LM_TOL_WKV_BF16 = 2 ** -3
 
 
 def log(*a):
@@ -2353,23 +2390,32 @@ class Smoke:
     # -- phase 9: LM serving --------------------------------------------------
 
     def lm_serve(self):
-        """The decoder-only LM path (`repro_torch.models`), which
-        launches none of the six kernels: (a) each decoder-only arch,
-        reduced, in float32, one set of weights on the CPU and a copy on
-        the card: prefill logits, 8 greedy decode steps and their tokens
-        against the CPU's; (b)-(c) smollm-135m at full width and depth and
-        phi3.5-moe at full width, 2 layers, in bf16 (`lm_full`); (d)
-        `python -m repro_torch.launch.serve` for the LM demo and the
-        division service, as child processes."""
+        """The LM path (`repro_torch.models`), which launches none of the
+        six kernels: (a) every registered arch, reduced, in float32, one
+        set of weights on the CPU and a copy on the card: prefill logits,
+        8 greedy decode steps and their tokens against the CPU's
+        (whisper over the cross cache its encoder fills); (b)-(c) the
+        LM_FULL archs at published width, in bf16 (`lm_full`); (d)
+        `python -m repro_torch.launch.serve` for the LM demo (smollm and
+        rwkv6-7b) and the division service, and the long-context RWKV
+        example, as child processes."""
         from repro_torch import configs as C
         from repro_torch.models import transformer as T
-        rep = self.report["lm_serve"] = {"reduced": {}, "full": {}}
+        rep = self.report["lm_serve"] = {"reduced": {}, "full": {},
+                                         "seconds": {}}
+        t0 = time.perf_counter()
         for arch in LM_ARCHS:
             rep["reduced"][arch] = self.lm_reduced(C, T, arch)
-        for arch, layers, prefill, batch, steps in LM_FULL:
-            rep["full"][arch] = self.lm_full(C, T, arch, layers, prefill,
-                                             batch, steps)
+        rep["seconds"]["reduced"] = time.perf_counter() - t0
+        for arch, cuts, prefill, batch, steps, f32 in LM_FULL:
+            t0 = time.perf_counter()
+            rep["full"][arch] = self.lm_full(C, T, arch, cuts, prefill,
+                                             batch, steps, f32)
+            rep["seconds"][arch] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         rep["cli"] = self.lm_cli()
+        rep["seconds"]["cli"] = time.perf_counter() - t0
+        log(f"lm_serve seconds: {json.dumps(rep['seconds'])}")
 
     def lm_close(self, what, got, want, tol):
         """Max |got - want| in float32; raises unless every element is
@@ -2382,25 +2428,55 @@ class Smoke:
                                  f"rtol = atol = {tol}")
         return err
 
+    def lm_batch(self, cfg, toks, gen):
+        """An arch's prefill batch for tokens (B, S): the tokens, or
+        random embeddings for an embed_stub decoder-only arch; whisper
+        also takes enc_seq random encoder frames (which fill its cross
+        cache, `lm_cache`)."""
+        torch = self.torch
+        b, s = toks.shape
+        dev = toks.device
+        if cfg.family == "encdec":
+            return {"tokens": toks, "enc_embeds": torch.randn(
+                (b, cfg.enc_seq, cfg.d_model), generator=gen,
+                device=gen.device).to(dev)}
+        if cfg.embed_stub:
+            return {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                          device=gen.device).to(dev)}
+        return {"tokens": toks}
+
+    @staticmethod
+    def lm_cache(T, model, b, max_seq, batch, device):
+        """A zero decode cache; whisper's cross cache filled from its
+        encoder over batch["enc_embeds"]."""
+        cache = T.init_cache(model.cfg, b, max_seq, device)
+        if model.cfg.family == "encdec":
+            T.encode_cross(model, cache, batch)
+        return cache
+
+    @staticmethod
+    def lm_prompt(cfg) -> int:
+        """Decode-against-prefill positions: LM_PROMPT, or
+        LM_PROMPT_CHUNKED for RWKV, whose prefill takes the chunked WKV
+        form from 128 positions."""
+        return LM_PROMPT_CHUNKED if cfg.family == "ssm" else LM_PROMPT
+
     def lm_reduced(self, C, T, arch):
         torch = self.torch
         cfg = C.get_config(arch).reduced()
         cpu = T.init_params(cfg, 0, "cpu")
         card = copy.deepcopy(cpu).to(self.dev)
         gen = torch.Generator().manual_seed(0)
-        b, s = 2, LM_PROMPT
+        b, s = 2, self.lm_prompt(cfg)
         toks = torch.randint(0, cfg.vocab, (b, s), generator=gen)
-        batch = {"tokens": toks}
-        if cfg.embed_stub:
-            batch = {"embeds": torch.randn((b, s, cfg.d_model),
-                                           generator=gen)}
+        batch = self.lm_batch(cfg, toks, gen)
+        on_card = {k: v.to(self.dev) for k, v in batch.items()}
         want = T.forward_prefill(cpu, batch)
-        got = T.forward_prefill(card, {k: v.to(self.dev)
-                                       for k, v in batch.items()})
+        got = T.forward_prefill(card, on_card)
         rec = {"prefill_err": self.lm_close(f"{arch} prefill", got, want,
                                             LM_TOL_F32)}
-        cc = T.init_cache(cfg, b, LM_GREEDY, "cpu")
-        gc = T.init_cache(cfg, b, LM_GREEDY, self.dev)
+        cc = self.lm_cache(T, cpu, b, LM_GREEDY, batch, "cpu")
+        gc = self.lm_cache(T, card, b, LM_GREEDY, on_card, self.dev)
         tc, errs = toks[:, 0], []
         for i in range(LM_GREEDY):
             lc, cc = T.forward_decode(cpu, cc, {"token": tc}, i)
@@ -2413,22 +2489,21 @@ class Smoke:
                                      f"step {i}")
         rec["decode_err"] = max(errs)
         log(f"lm {arch} reduced, card vs CPU (float32): prefill err "
-            f"{rec['prefill_err']:.3g}, {LM_GREEDY} decode steps err "
-            f"{rec['decode_err']:.3g}, greedy tokens equal")
+            f"{rec['prefill_err']:.3g} ({s} positions), {LM_GREEDY} decode "
+            f"steps err {rec['decode_err']:.3g}, greedy tokens equal")
         return rec
 
-    def lm_full(self, C, T, arch, layers, prefill, batch, steps):
-        """One arch at its published width (and depth, or `layers`), bf16
-        weights from seed 0 built on the card, and a float32 copy of them:
-        decode of a prompt against its prefill (the copy at JAX's
-        tolerance, the bf16 model at bf16's); greedy steps of the bf16
-        model against the copy; then prefill and decode timed, the
+    def lm_full(self, C, T, arch, cuts, prefill, batch, steps, with_f32):
+        """One arch at its published width (and depth, or as `cuts`), bf16
+        weights from seed 0 built on the card, and, `with_f32`, a float32
+        copy of them: decode of a prompt against its prefill (the copy at
+        JAX's tolerance, the bf16 model at bf16's; RWKV's in
+        `lm_wkv_checks`); greedy steps of the bf16 model against the copy
+        (not RWKV's); then prefill and decode timed, the
         device's busy share of each (torch.profiler), tokens/s, peak
         memory, and the bounds."""
         torch = self.torch
-        cfg = C.get_config(arch)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = dataclasses.replace(C.get_config(arch), **cuts)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         model = T.init_params(cfg, 0, self.dev)
@@ -2438,21 +2513,30 @@ class Smoke:
                    n_params=sum(p.numel() for p in params),
                    weight_bytes=sum(p.numel() * p.element_size()
                                     for p in params))
-        m32 = copy.deepcopy(model).to(torch.float32)
-        m32.cfg = dataclasses.replace(cfg, dtype="float32",
-                                      param_dtype_str="float32")
         gen = torch.Generator(device=self.dev).manual_seed(1)
-        prompt = torch.randint(0, cfg.vocab, (batch, LM_PROMPT),
+        prompt = torch.randint(0, cfg.vocab, (batch, self.lm_prompt(cfg)),
                                generator=gen, device=self.dev)
+        pbatch = self.lm_batch(cfg, prompt, gen)
         t0 = time.perf_counter()
-        for name, m, tol in (("float32", m32, LM_TOL_JAX),
-                             ("bf16", model, LM_TOL_BF16)):
-            got = self.lm_decode_vs_prefill(T, m, prompt, tol)
-            rec.update({f"decode_vs_prefill_{name}_{k}": v
-                        for k, v in got.items()})
-        rec.update(self.lm_vs_f32(T, model, m32, prompt[:, 0]))
+        checks = [("bf16", model, LM_TOL_BF16)]
+        if with_f32:
+            m32 = copy.deepcopy(model).to(torch.float32)
+            m32.cfg = dataclasses.replace(cfg, dtype="float32",
+                                          param_dtype_str="float32")
+            checks.insert(0, ("float32", m32, LM_TOL_JAX))
+        if cfg.family == "ssm":
+            rec.update(self.lm_wkv_checks(T, model, m32, pbatch))
+        else:
+            for name, m, tol in checks:
+                got = self.lm_decode_vs_prefill(T, m, pbatch, tol)
+                got.update(tol=tol)
+                rec.update({f"decode_vs_prefill_{name}_{k}": v
+                            for k, v in got.items()})
+            if with_f32:
+                rec.update(self.lm_vs_f32(T, model, m32, pbatch))
+        if with_f32:
+            del m32, checks
         rec["checks_s"] = time.perf_counter() - t0
-        del m32
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2465,14 +2549,78 @@ class Smoke:
         torch.cuda.empty_cache()
         return rec
 
-    def lm_decode_vs_prefill(self, T, model, prompt, tol):
-        """Step-by-step decode of `prompt` against its prefill: every
-        logit finite, the last position's logits within rtol = atol =
-        tol.  A MoE runs at a capacity factor that fits every slot (a
-        prefill routes all positions against one capacity and may drop
-        what one-token steps keep), and a row whose routing differs
-        between the two paths at any position (a router near-tie tipped
-        by rounding) is counted and left out; at least one row stays."""
+    def lm_wkv_checks(self, T, model, m32, batch):
+        """RWKV at full width: decode of the prompt against its prefill on
+        the first n layers of the same weights (`first_layers`), the
+        float32 copy at each depth of LM_WKV_F32 within its limit, the
+        bf16 model on LM_WKV_LAYERS within LM_TOL_WKV_BF16; at the full
+        depth the bf16 prefill's and LM_GREEDY decode steps' logits
+        finite.  No greedy steps against the copy: bf16 puts RWKV's
+        logits further from float32's than LM_TOL_BF16 (LM_WKV_F32)."""
+        torch = self.torch
+        rec = {}
+        for name, m, limits in (
+                ("float32", m32, LM_WKV_F32),
+                ("bf16", model, {LM_WKV_LAYERS: LM_TOL_WKV_BF16})):
+            for depth, tol in limits.items():
+                got = self.lm_decode_vs_prefill(
+                    T, T.first_layers(m, depth), batch, tol)
+                got.update(tol=tol)
+                rec.update({f"decode_vs_prefill_{name}_{depth}l_{k}": v
+                            for k, v in got.items()})
+        prompt = batch["tokens"]
+        logits = [T.forward_prefill(model, batch)]
+        cache = T.init_cache(model.cfg, prompt.shape[0], LM_GREEDY, self.dev)
+        for i in range(LM_GREEDY):
+            out, cache = T.forward_decode(model, cache,
+                                          {"token": prompt[:, i]}, i)
+            logits.append(out)
+        if not all(torch.isfinite(x).all() for x in logits):
+            raise AssertionError(f"{model.cfg.name} (bf16, full depth): "
+                                 "non-finite logits")
+        return rec
+
+    @contextmanager
+    def forced_routing(self, routed):
+        """Within it, each MoE layer of `routed` ({id(MoE module): (B, S,
+        k) expert ids}) routes decode position `state.pos` to those
+        experts through `moe.dispatch`, as `moe.route` dispatches its own
+        top k (the router's probabilities renormalised over them, the
+        call's capacity).  `state.flipped` marks the rows whose own top k
+        differed at some position.  It lives in the check; the port's API
+        has no such hook."""
+        from repro_torch.models import moe as MOE
+        orig = MOE.route
+        state = types.SimpleNamespace(pos=0, flipped=None)
+
+        def route(p, xt, cfg):
+            r = orig(p, xt, cfg)
+            want = routed.get(id(p))
+            if want is None:
+                return r
+            experts = want[:, state.pos]                    # (B, k)
+            differ = (r.experts != experts).any(-1)
+            state.flipped = differ if state.flipped is None \
+                else state.flipped | differ
+            return MOE.dispatch(r.probs, experts, r.cap)
+
+        MOE.route = route
+        try:
+            yield state
+        finally:
+            MOE.route = orig
+
+    def lm_decode_vs_prefill(self, T, model, batch, tol):
+        """Step-by-step decode of batch["tokens"] against its prefill
+        (whisper over the cross cache its encoder fills from the prefill's
+        frames): every logit finite, the last position's logits within
+        rtol = atol = tol on every row.  A MoE runs at a capacity factor
+        that fits every slot (a prefill routes all positions against one
+        capacity and may drop what one-token steps keep), and its decode
+        steps take the prefill's expert ids (`forced_routing`): a router
+        near-tie that rounding tips between the two paths would otherwise
+        send a row through other experts.  The rows whose own decode
+        routing differed are counted."""
         torch = self.torch
         cfg = model.cfg
         check = copy.copy(model)            # the same modules, its own cfg
@@ -2480,44 +2628,42 @@ class Smoke:
             check.cfg = dataclasses.replace(
                 cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
         moe = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
+        prompt = batch["tokens"]
         b, s = prompt.shape
-        full = T.forward_prefill(check, {"tokens": prompt})
-        routed = [m.routing.experts.reshape(b, s, -1) for m in moe]
-        cache = T.init_cache(cfg, b, s, self.dev)
-        steps = [[] for _ in moe]
-        for i in range(s):
-            logits, cache = T.forward_decode(check, cache,
-                                             {"token": prompt[:, i]}, i)
-            for j, m in enumerate(moe):
-                steps[j].append(m.routing.experts)
+        full = T.forward_prefill(check, batch)
+        routed = {id(m): m.routing.experts.reshape(b, s, -1) for m in moe}
+        cache = self.lm_cache(T, check, b, s, batch, self.dev)
+        with self.forced_routing(routed) as forced:
+            for i in range(s):
+                forced.pos = i
+                logits, cache = T.forward_decode(check, cache,
+                                                 {"token": prompt[:, i]}, i)
         if not (torch.isfinite(full).all() and torch.isfinite(logits).all()):
             raise AssertionError(f"{cfg.name}: non-finite logits")
-        same = torch.ones(b, dtype=torch.bool, device=self.dev)
-        for r, st in zip(routed, steps):
-            same &= (torch.stack(st, 1) == r).flatten(1).all(-1)
-        if not same.any():
-            raise AssertionError(f"{cfg.name}: every row routed otherwise "
-                                 "in decode than in prefill")
-        err = self.lm_close(f"{cfg.name} ({cfg.dtype}) decode vs prefill",
-                            logits[same], full[same], tol)
-        return dict(err=err, rows=b, routing_flipped_rows=int((~same).sum()))
+        err = self.lm_close(f"{cfg.name} ({cfg.dtype}, {cfg.n_layers} "
+                            "layers) decode vs prefill", logits, full, tol)
+        flipped = 0 if forced.flipped is None else int(forced.flipped.sum())
+        return dict(err=err, rows=b, rows_compared=b, positions=s,
+                    routing_flipped_rows=flipped)
 
-    def lm_vs_f32(self, T, model, m32, first):
+    def lm_vs_f32(self, T, model, m32, batch):
         """LM_GREEDY greedy steps of the bf16 model beside its float32
-        copy, both fed the float32 run's tokens.  A row whose MoE routing
-        differs between the two (a router near-tie tipped by bf16
-        activations: another expert, another output) is counted and left
-        out; on the other rows the logits agree within LM_TOL_BF16, and
-        the greedy tokens are equal wherever the float32 top-2 margin
-        exceeds twice that tolerance at the top logit (nearer ties may go
-        either way in bf16)."""
+        copy from batch["tokens"][:, 0] (whisper over the cross caches
+        each fills from batch's frames), both fed the float32 run's
+        tokens.  A row whose MoE routing differs between the two (a router
+        near-tie tipped by bf16 activations: another expert, another
+        output) is counted and left out; on the other rows the logits
+        agree within LM_TOL_BF16, and the greedy tokens are equal wherever
+        the float32 top-2 margin exceeds twice that tolerance at the top
+        logit (nearer ties may go either way in bf16)."""
         torch = self.torch
         cfg = model.cfg
         moe = [(a.moe, c.moe) for a, c in zip(model.blocks, m32.blocks)
                if hasattr(a, "moe")]
+        first = batch["tokens"][:, 0]
         b = first.shape[0]
-        c16 = T.init_cache(cfg, b, LM_GREEDY, self.dev)
-        c32 = T.init_cache(m32.cfg, b, LM_GREEDY, self.dev)
+        c16 = self.lm_cache(T, model, b, LM_GREEDY, batch, self.dev)
+        c32 = self.lm_cache(T, m32, b, LM_GREEDY, batch, self.dev)
         tok, err, equal, clear_n, flipped, differ = first, 0.0, 0, 0, 0, []
         worst = 0.0             # the widest float32 margin bf16 crossed
         for i in range(LM_GREEDY):
@@ -2552,24 +2698,58 @@ class Smoke:
                                  f"differs at {differ}: {rec}")
         return rec
 
+    @staticmethod
+    def lm_work(T, model, cfg):
+        """What the bounds count, from the model's parameters: `tok` the
+        matrix entries one decoder position multiplies by (every layer's
+        mixer and ffn, router included, MoE experts and the cross
+        attention's K/V projections excluded), `frame` the cross
+        attention's K/V entries one encoder frame meets, `enc` those of
+        the encoder layers, `expert` one expert's, `head` the logits'.
+        Depthwise and elementwise leaves (RWKV's mu and u, Mamba's conv
+        and a_log) are not products."""
+        elementwise = ("tm.mu", "tm.u", "mamba.conv_w", "mamba.a_log")
+        tok = frame = 0
+        for blk in model.blocks:
+            for name, p in blk.named_parameters():
+                if p.ndim < 2 or name.startswith(elementwise + ("moe.w",)):
+                    continue
+                if name.startswith(("xattn.wk", "xattn.wv")):
+                    frame += p.numel()
+                else:
+                    tok += p.numel()
+        enc = sum(p.numel() for blk in getattr(model, "enc_blocks", ())
+                  for p in blk.parameters() if p.ndim >= 2)
+        mats = 3 if cfg.act == "swiglu" else 2
+        return dict(tok=tok, frame=frame, enc=enc,
+                    expert=mats * cfg.d_model * cfg.moe_d_ff,
+                    head=cfg.d_model * T.vocab_padded(cfg))
+
     def lm_timing(self, T, model, cfg, prefill, batch, steps, gen):
         torch = self.torch
         pb, ps = prefill
         toks = torch.randint(0, cfg.vocab, (pb, ps), generator=gen,
                              device=self.dev)
+        pbatch = self.lm_batch(cfg, toks, gen)
 
         def run_prefill():
-            return T.forward_prefill(model, {"tokens": toks})
+            return T.forward_prefill(model, pbatch)
 
         prefill_ms = self.time_ms(run_prefill)
+        encode_ms = self.time_ms(lambda: T._encode(model, pbatch)) \
+            if cfg.family == "encdec" else None
         moe = [blk.moe for blk in model.blocks if hasattr(blk, "moe")]
         run_prefill()
         dropped = sum(int((~m.routing.keep).sum()) for m in moe)
         kept = pb * ps * cfg.moe_top_k * len(moe) - dropped
-        cache = T.init_cache(cfg, batch, ps + steps, self.dev)
+        dbatch = self.lm_batch(cfg, toks[:1].expand(batch, ps), gen)
+        cache = self.lm_cache(T, model, batch, ps + steps, dbatch, self.dev)
         for st in cache:                # the prefill's positions: history
-            for t in st.values():
-                t[:, :ps].normal_(generator=gen)
+            for name, t in st.items():
+                if name in ("k", "v"):
+                    t[:, :ps].normal_(generator=gen)
+                elif name not in ("ck", "cv"):    # a recurrent state
+                    t.normal_(generator=gen)
         first = torch.randint(0, cfg.vocab, (batch,), generator=gen,
                               device=self.dev)
 
@@ -2600,48 +2780,17 @@ class Smoke:
         prof_p = self.device_share(run_prefill)
         prof_n = min(steps, LM_GREEDY)
         prof_d = self.device_share(lambda: run_decode(prof_n))
-        # bounds: prefill's weight products per position, its causal
-        # attention (the chunked core also computes the masked half) and
-        # the last position's head; decode's weights (a MoE's routed
-        # experts only), the cache positions each step attends to and
-        # the head
-        d, hd, h, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        vp = T.vocab_padded(cfg)
-        proj = d * hd * (h + 2 * hkv) + h * hd * d
-        ffn_mats = 3 if cfg.act == "swiglu" else 2
-        mlp = ffn_mats * d * cfg.d_ff
-        expert = ffn_mats * d * cfg.moe_d_ff
-        n_mlp = sum(1 for blk in model.blocks if hasattr(blk, "mlp"))
-        flops = 2 * pb * ps * cfg.n_layers * proj \
-            + 2 * pb * ps * n_mlp * mlp \
-            + 2 * kept * expert + 2 * pb * ps * len(moe) * d * cfg.n_experts \
-            + 2 * cfg.n_layers * pb * ps * (ps + 1) * h * hd \
-            + 2 * pb * d * vp
-        psize = 2                            # bf16
-        all_bytes = sum(p.numel() * p.element_size()
-                        for p in model.parameters())
-        p_bound = self.RL.flop_bound(flops, all_bytes)
-        expert_bytes = psize * expert
-        if moe:
-            routed = statistics.mean(experts)
-            w_bytes = all_bytes - len(moe) * cfg.n_experts * expert_bytes \
-                + routed * expert_bytes
-        else:
-            routed, w_bytes = None, all_bytes
-        kv = 2 * cfg.n_layers * batch * hkv * hd * 2 * \
-            statistics.mean(ps + i + 1 for i in range(steps))
-        d_bound = self.RL.flop_bound(2 * batch * (w_bytes / psize),
-                                     w_bytes + kv + batch * vp * psize)
-        rec = dict(
-            prefill=f"{pb} x {ps}", prefill_ms=prefill_ms,
+        rec = dict(prefill=f"{pb} x {ps}", prefill_ms=prefill_ms,
+                   encode_ms=encode_ms)
+        rec.update(self.lm_bounds(T, model, cfg, pb, ps, kept, batch, steps,
+                                  statistics.mean(experts) if moe else None))
+        rec.update(
             prefill_tokens_s=pb * ps / prefill_ms * 1e3,
             prefill_busy_share=prof_p["device_busy_share"],
             prefill_host_share=None if prof_p["device_busy_share"] is None
             else 1 - prof_p["device_busy_share"],
-            prefill_flops=flops, prefill_bound_ms=p_bound[0] * 1e3,
-            prefill_bound_by=p_bound[1],
             decode=f"{steps} steps at batch {batch}, positions {ps}.."
-                   f"{ps + steps - 1} of a {ps + steps}-position cache",
+                   f"{ps + steps - 1} after {ps} positions of history",
             decode_ms_per_step=decode_ms,
             decode_tokens_s=batch / decode_ms * 1e3,
             decode_busy_share=prof_d["device_busy_share"],
@@ -2649,13 +2798,80 @@ class Smoke:
             else 1 - prof_d["device_busy_share"],
             decode_device_ms_per_step=None if prof_d["device_ms"] is None
             else prof_d["device_ms"] / prof_n,
-            decode_bytes=w_bytes + kv, decode_bound_ms=d_bound[0] * 1e3,
-            decode_bound_by=d_bound[1], routed_experts_per_step=routed,
             prefill_dropped=dropped if moe else None,
             prefill_slots=pb * ps * cfg.moe_top_k * len(moe) if moe
             else None)
-        rec.update(self.lm_sdpa(T, cfg, pb, ps, gen))
+        if any(mixer == "attn" for mixer, _ in T.layer_slots(cfg)):
+            rec.update(self.lm_sdpa(T, cfg, pb, ps, gen))
         return rec
+
+    def lm_bounds(self, T, model, cfg, pb, ps, kept, batch, steps, routed):
+        """The least time the card could take (989 TFLOP/s bf16, 3.35
+        TB/s: `roofline.flop_bound`).  Prefill: every position through
+        its layers' products (a MoE's kept slots only), the causal
+        attention (half the square), the recurrences' state updates
+        (RWKV 6 d hd, Mamba 7 di N per position and layer), whisper's
+        encoder over its frames (non-causal attention, the whole square)
+        and its cross attention (K/V of every frame, scores against every
+        frame), the last position's head; all weights read once.  Decode,
+        per step: the weights it multiplies (the routed experts of a MoE;
+        not the encoder, the cross K/V projections or the embedding
+        table, of which it gathers rows), the attention history it reads,
+        the recurrent states read and written, the cross cache read, the
+        logits written."""
+        w = self.lm_work(T, model, cfg)
+        slots = T.layer_slots(cfg)
+        n_attn = sum(1 for mixer, _ in slots if mixer == "attn")
+        n_rwkv = sum(1 for mixer, _ in slots if mixer == "rwkv")
+        n_mamba = sum(1 for mixer, _ in slots if mixer == "mamba")
+        n_moe = sum(1 for _, ffn in slots if ffn.startswith("moe"))
+        d, hd, h, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        di = cfg.mamba_d_inner or 2 * d
+        vp = T.vocab_padded(cfg)
+        enc = cfg.enc_seq if cfg.family == "encdec" else 0
+        n_enc = cfg.n_enc_layers if enc else 0
+        rwkv_hd = d // h
+        flops = 2 * pb * ps * w["tok"] + 2 * kept * w["expert"] \
+            + 2 * n_attn * pb * ps * (ps + 1) * h * hd \
+            + 6 * n_rwkv * pb * ps * d * rwkv_hd \
+            + 7 * n_mamba * pb * ps * di * 16 \
+            + 2 * pb * enc * w["enc"] + 4 * n_enc * pb * enc * enc * h * hd \
+            + 2 * pb * enc * w["frame"] \
+            + 4 * (cfg.n_layers if enc else 0) * pb * ps * enc * h * hd \
+            + 2 * pb * w["head"]
+        psize = 2                            # bf16
+        all_bytes = sum(p.numel() * p.element_size()
+                        for p in model.parameters())
+        p_bound = self.RL.flop_bound(flops, all_bytes)
+        # decode
+        skip = ("xattn.wk", "xattn.wv", "moe.w")
+        w_bytes = sum(p.numel() * p.element_size()
+                      for blk in model.blocks
+                      for name, p in blk.named_parameters()
+                      if not name.startswith(skip))
+        w_bytes += psize * (w["head"] + 2 * d)          # head, final_ln
+        if routed is not None:
+            w_bytes += routed * psize * w["expert"]
+        positions = statistics.mean(ps + i + 1 for i in range(steps))
+        kv = 2 * n_attn * batch * hkv * hd * psize * positions
+        state = 2 * 4 * batch * (n_rwkv * h * rwkv_hd ** 2
+                                 + n_mamba * di * 16) \
+            + 2 * psize * batch * (2 * n_rwkv * d + n_mamba * 3 * di)
+        cross = 2 * cfg.n_layers * batch * enc * hkv * hd * psize
+        d_flops = 2 * batch * (w["tok"] + w["head"]
+                               + cfg.moe_top_k * n_moe * w["expert"]) \
+            + 4 * n_attn * batch * positions * h * hd \
+            + 6 * n_rwkv * batch * d * rwkv_hd \
+            + 7 * n_mamba * batch * di * 16 \
+            + 4 * cfg.n_layers * batch * enc * h * hd
+        d_bytes = w_bytes + kv + state + cross + batch * vp * psize
+        d_bound = self.RL.flop_bound(d_flops, d_bytes)
+        return dict(prefill_flops=flops, prefill_bound_ms=p_bound[0] * 1e3,
+                    prefill_bound_by=p_bound[1], decode_bytes=d_bytes,
+                    decode_state_bytes=state + kv + cross,
+                    decode_bound_ms=d_bound[0] * 1e3,
+                    decode_bound_by=d_bound[1],
+                    routed_experts_per_step=routed)
 
     def lm_sdpa(self, T, cfg, b, s, gen):
         """A yardstick for a later PR: one layer's chunked attention core
@@ -2681,29 +2897,44 @@ class Smoke:
                     sdpa_ms=self.time_ms(sdpa), attn_core_vs_sdpa_err=err)
 
     def lm_cli(self):
-        """`python -m repro_torch.launch.serve` as child processes on the
-        card: the LM demo (reduced smollm, 32 tokens) and the division
-        service (--bigint, 256 limbs x 64), each exiting 0, the second
-        printing "all exact"."""
+        """Child processes on the card, started together: `python -m
+        repro_torch.launch.serve` for the LM demo (reduced smollm, 32
+        tokens; reduced rwkv6-7b, 8 tokens) and the division service
+        (--bigint, 256 limbs x 64), and the long-context RWKV example;
+        each must exit 0 and print what it prints on success."""
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        out = {}
-        for name, extra, want in (
-                ("lm", ["--arch", "smollm-135m", "--tokens", "32"],
-                 "decoded 32 tokens"),
-                ("bigint", ["--bigint", "--limbs", "256", "--batch", "64"],
-                 "all exact")):
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m",
-                                "repro_torch.launch.serve", *extra],
-                               env=env, cwd=ROOT, capture_output=True,
-                               text=True, timeout=300)
-            if r.returncode != 0 or want not in r.stdout:
-                raise AssertionError(f"serve {' '.join(extra)}: rc "
-                                     f"{r.returncode}\n{r.stdout[-2000:]}"
-                                     f"\n{r.stderr[-2000:]}")
+        serve = "repro_torch.launch.serve"
+        runs = {
+            "lm": ([serve, "--arch", "smollm-135m", "--tokens", "32"],
+                   "decoded 32 tokens"),
+            "lm_rwkv": ([serve, "--arch", "rwkv6-7b", "--tokens", "8"],
+                        "decoded 8 tokens"),
+            "bigint": ([serve, "--bigint", "--limbs", "256", "--batch",
+                        "64"], "all exact"),
+            "long_context_rwkv": (["repro_torch.examples.long_context_rwkv"],
+                                  "position 524287")}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", *argv], env=env, cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for name, (argv, _) in runs.items()}
+        out, failed = {}, []
+        for name, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            argv, want = runs[name]
             out[name] = dict(seconds=time.perf_counter() - t0,
-                             stdout=r.stdout.strip().splitlines())
-            log(f"serve {' '.join(extra)}: {out[name]['stdout']}")
+                             rc=p.returncode,
+                             stdout=stdout.strip().splitlines())
+            log(f"{' '.join(argv)}: rc {p.returncode}, {out[name]['stdout']}")
+            if p.returncode != 0 or want not in stdout:
+                failed.append(f"{' '.join(argv)}: rc {p.returncode}\n"
+                              f"{stdout[-2000:]}\n{stderr[-2000:]}")
+        if failed:
+            raise AssertionError("\n".join(failed))
         return out
 
     def kernel_line(self, launches):

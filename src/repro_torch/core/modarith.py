@@ -240,3 +240,23 @@ def modexp_shared(ctx: BarrettContext, a: torch.Tensor, e: torch.Tensor,
                   window_bits: int = 4,
                   impl: str | None = None) -> torch.Tensor:
     return modexp(_shared(ctx), a, e, window_bits=window_bits, impl=impl)
+
+
+# JAX's jitted names of the shared-modulus calls; the port's are batched
+# already
+
+def reduce_shared_batch(ctx: BarrettContext, x: torch.Tensor,
+                        impl: str | None = None) -> torch.Tensor:
+    return reduce_shared(ctx, x, impl=impl)
+
+
+def modmul_shared_batch(ctx: BarrettContext, a: torch.Tensor,
+                        b: torch.Tensor,
+                        impl: str | None = None) -> torch.Tensor:
+    return modmul_shared(ctx, a, b, impl=impl)
+
+
+def modexp_shared_batch(ctx: BarrettContext, a: torch.Tensor,
+                        e: torch.Tensor, impl: str | None = None,
+                        window_bits: int = 4) -> torch.Tensor:
+    return modexp_shared(ctx, a, e, window_bits=window_bits, impl=impl)

@@ -158,3 +158,21 @@ def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True,
                      impl=impl)
     q, r = K.fused_correct(uw, vw, si, h=h, impl=impl)
     return q[:, :m_limbs], r[:, :m_limbs]
+
+
+def shinv_fixed(v: torch.Tensor, h, *, iters_max: int,
+                impl: str | None = None,
+                windowed: bool = True) -> torch.Tensor:
+    """One instance of `shinv_batch` (JAX's shinv_fixed): v (W,) limbs,
+    h an int or a 0-d tensor."""
+    h = torch.as_tensor(h, dtype=DTYPE, device=v.device).reshape(1)
+    return shinv_batch(v[None], h, iters_max, windowed=windowed,
+                       impl=impl)[0]
+
+
+def divmod_fixed(u: torch.Tensor, v: torch.Tensor, impl: str | None = None,
+                 windowed: bool = True):
+    """One instance of `divmod_batch` (JAX's divmod_fixed): u, v (M,)
+    limbs; divmod(u, 0) = (0, u)."""
+    q, r = divmod_batch(u[None], v[None], windowed=windowed, impl=impl)
+    return q[0], r[0]

@@ -66,6 +66,15 @@ def default_impl() -> str:
     return DEFAULT_IMPL
 
 
+def set_default_impl(name: str) -> None:
+    """The impl that `impl=None` means from now on (JAX's
+    `set_default_impl`); raises ValueError for an unknown one."""
+    global DEFAULT_IMPL
+    if name not in IMPLS:
+        raise ValueError(f"unknown impl {name!r}; expected one of {IMPLS}")
+    DEFAULT_IMPL = name
+
+
 def check_impl(name: str | None) -> str:
     """The concrete impl for an optional name (None = the default);
     raises ValueError for an unknown one."""

@@ -7,8 +7,8 @@
     python -m repro_torch.launch.serve --bigint --limbs 256 --batch 64
 
 Both run on the card unless `--device cpu` asks for the CPU.  The LM
-path runs the decoder-only families (dense, moe); the others raise
-NotImplementedError (not ported yet).
+path runs every registered arch, as JAX's does: whisper decodes over the
+zero cross cache `init_cache` gives (no encoder pass).
 """
 
 from __future__ import annotations

@@ -37,11 +37,18 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
 
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Normal draws in float32 on the generator's device, scaled, then
+    cast (JAX's `(normal(key, shape) * scale).astype(dtype)`)."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype: torch.dtype) -> torch.Tensor:
-    w = torch.randn((vocab, dim), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return (w * 0.02).to(dtype)
+    return normal_init(gen, (vocab, dim), 0.02, dtype)
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -281,6 +288,29 @@ def attn_decode(p, x, cfg, cache_k, cache_v, pos: int):
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vv.float())
     out = out.to(x.dtype).reshape(b, 1, -1)
     return dense(out, p.wo), cache_k, cache_v
+
+
+def cross_attention(p, x, enc_kv, cfg):
+    """Decoder cross-attention (whisper) over the encoder's K and V
+    (B, S_enc, Hkv, hd), unmasked, in float32.  As in JAX, the query and
+    the encoder's K and V take no bias."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = F.linear(x, p.wq.weight.to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k, v = (_repeat_kv(t, cfg.n_heads) for t in enc_kv)
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    out = torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v.float())
+    return dense(out.to(x.dtype).reshape(b, s, -1), p.wo)
+
+
+def encode_kv(p, enc_out, cfg):
+    """The cross-attention's K and V of the encoder output (B, S_enc,
+    D), each (B, S_enc, Hkv, hd) in enc_out's dtype."""
+    b, s, _ = enc_out.shape
+    shape = (b, s, cfg.n_kv_heads, cfg.head_dim)
+    return tuple(F.linear(enc_out, w.weight.to(enc_out.dtype)).reshape(shape)
+                 for w in (p.wk, p.wv))
 
 
 # ---------------------------------------------------------------------------

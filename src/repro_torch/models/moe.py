@@ -68,9 +68,17 @@ def route(p, xt: torch.Tensor, cfg) -> Routing:
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.moe_top_k
     cap = max(int(math.ceil(k * t / e * cfg.capacity_factor)), 4)
-    logits = xt.float() @ p.router
-    probs = logits.softmax(-1)
-    gates, experts = top_k(probs, k)
+    probs = (xt.float() @ p.router).softmax(-1)
+    return dispatch(probs, top_k(probs, k)[1], cap)
+
+
+def dispatch(probs: torch.Tensor, experts: torch.Tensor, cap: int) -> Routing:
+    """The Routing of T tokens onto `experts` (T, k): gates the router's
+    probabilities (T, E) renormalised over them, each (token, slot) placed
+    by its cumulative count in token-major order, dropped past cap."""
+    t, k = experts.shape
+    e = probs.shape[-1]
+    gates = probs.gather(-1, experts)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     flat_oh = F.one_hot(experts, e).reshape(t * k, e)
     pos = ((flat_oh.cumsum(0) * flat_oh).sum(-1) - 1).reshape(t, k)

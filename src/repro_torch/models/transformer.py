@@ -1,24 +1,37 @@
-"""Model assembly for the decoder-only families: the port of
-`repro/models/transformer.py` for serving (prefill and decode).
+"""Model assembly for serving (prefill and decode): the port of
+`repro/models/transformer.py` for every family.
 
-Families ported: dense and moe, decoder-only transformers (GQA,
-RoPE/M-RoPE, MLP, MoE or MoE + dense residual).  The ssm (RWKV-6),
-hybrid (Jamba) and encdec (Whisper) families, and training
-(`forward_train`, the chunked cross-entropy), are not ported yet
-(ROADMAP queue 1 item 5, slices 11 and 12): `Transformer` raises
-NotImplementedError for those families.
+Families:
+  dense | moe  -- decoder-only transformer (GQA, RoPE/M-RoPE, MLP, MoE or
+                  MoE + dense residual)
+  ssm          -- RWKV-6 (attention-free: time mix and channel mix)
+  hybrid       -- Jamba (Mamba and attention layers, MoE every other)
+  encdec       -- Whisper (an encoder over frame embeddings, a causal
+                  decoder with cross-attention)
+Training (`forward_train`, the chunked cross-entropy) is not ported yet
+(ROADMAP queue 1, slice 12).
 
 Layout: JAX scans one repeat unit of `block_pattern(cfg)` over
 parameters stacked on a leading repeat axis; the port unrolls the scan
 into `blocks`, an `nn.ModuleList` of n_layers slots in pattern order
-(layer r * len(pattern) + i is slot i of repeat r).  The KV cache is a
-list of per-layer {"k", "v"} tensors of shape (B, S_max, Hkv, hd), in
-bfloat16 whatever cfg.dtype is, as JAX keeps it.
+(layer r * len(pattern) + i is slot i of repeat r); whisper's encoder
+layers are `enc_blocks`.  The decode cache is a list of per-layer dicts
+holding the state `_slot_cache` gives the layer's mixer: "k"/"v" (B,
+S_max, Hkv, hd) in bfloat16 for attention, whatever cfg.dtype is, as JAX
+keeps it; "conv" (B, D_CONV - 1, di) in cfg.dtype and "ssm" (B, di,
+D_STATE) in float32 for Mamba; "wkv" (B, H, hd, hd) in float32 and
+"tm_x"/"cm_x" (B, D) in cfg.dtype for RWKV; and for whisper also
+"ck"/"cv" (B, enc_seq, Hkv, hd) in bfloat16, the cross-attention's
+encoder K and V.  `init_cache` makes them zeros, as JAX's does, and no
+entry point fills ck/cv: `encode_cross` does, from the encoder over
+given frames.
 
 Public API:
   init_params(cfg, seed, device)               -> Transformer
+  first_layers(model, n)                       -> Transformer (shared)
   params_from_jax(cfg, tree, device)           -> Transformer
   init_cache(cfg, batch, max_seq, device)      -> cache
+  encode_cross(model, cache, batch)            -> cache (ck/cv filled)
   forward_prefill(model, batch)                -> last-token logits
   forward_decode(model, cache, batch, pos)     -> (logits, cache)
 
@@ -29,14 +42,21 @@ columns, and a caller takes the first cfg.vocab.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 from torch import nn
 
 from . import layers as L
+from . import mamba as MAMBA
 from . import moe as MOE
+from . import rwkv as RWKV
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+# whisper's decoder position table (JAX's init_params)
+POS_ROWS = 32768
 
 
 def vocab_padded(cfg) -> int:
@@ -91,32 +111,44 @@ def _norm(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One layer: ln1, the attention mixer, ln2 and its ffn (mlp, moe or
-    moe + mlp)."""
+    """One layer: ln1 and its mixer (`attn`, `mamba`, or RWKV's time mix
+    `tm`), ln2 and its ffn (`mlp`, `moe`, both, or RWKV's channel mix
+    `cm`); a whisper decoder layer (`cross`) adds ln_x and the
+    cross-attention `xattn`."""
 
-    def __init__(self, cfg, ffn: str, gen: torch.Generator):
+    def __init__(self, cfg, mixer: str, ffn: str, gen: torch.Generator,
+                 cross: bool = False):
         super().__init__()
-        self.ffn = ffn
+        self.mixer, self.ffn = mixer, ffn
         self.ln1 = _make_norm(cfg, gen.device)
         self.ln2 = _make_norm(cfg, gen.device)
-        self.attn = L.Attention(cfg, gen)
+        if mixer == "attn":
+            self.attn = L.Attention(cfg, gen)
+        elif mixer == "mamba":
+            self.mamba = MAMBA.Mamba(cfg, gen)
+        else:
+            self.tm = RWKV.TimeMix(cfg, gen)
         if ffn in ("moe", "moe+mlp"):
             self.moe = MOE.MoE(cfg, gen)
         if ffn in ("mlp", "moe+mlp"):
             self.mlp = L.MLP(cfg, gen)
+        if ffn == "rwkv_cm":
+            self.cm = RWKV.ChannelMix(cfg, gen)
+        if cross:
+            self.xattn = L.Attention(cfg, gen)
+            self.ln_x = _make_norm(cfg, gen.device)
 
 
 class Transformer(nn.Module):
     """embed (vocab_padded, D), blocks, final_ln, and lm_head where the
-    embeddings are not tied (the tied head is embed.T)."""
+    embeddings are not tied (the tied head is embed.T); for whisper also
+    enc_blocks, enc_final_ln, pos_embed (POS_ROWS, D) and enc_pos_embed
+    (enc_seq, D)."""
 
     def __init__(self, cfg, seed: int = 0, device="cuda"):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP queue 1 item 5, slice 11: the ssm/hybrid/encdec "
-                "serve paths)")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         device = _device(device)
         self.cfg = cfg
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -125,9 +157,19 @@ class Transformer(nn.Module):
                                           cfg.param_dtype))
         if not cfg.tie_embeddings:
             self.lm_head = L.linear(gen, cfg.d_model, vp, cfg.param_dtype)
-        self.blocks = nn.ModuleList(Block(cfg, ffn, gen)
-                                    for _, ffn in layer_slots(cfg))
+        cross = cfg.family == "encdec"
+        self.blocks = nn.ModuleList(Block(cfg, mixer, ffn, gen, cross)
+                                    for mixer, ffn in layer_slots(cfg))
         self.final_ln = _make_norm(cfg, device)
+        if cross:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, "attn", "mlp", gen)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_final_ln = _make_norm(cfg, device)
+            self.pos_embed = L.param(L.embed_init(gen, POS_ROWS, cfg.d_model,
+                                                  cfg.param_dtype))
+            self.enc_pos_embed = L.param(L.embed_init(
+                gen, cfg.enc_seq, cfg.d_model, cfg.param_dtype))
 
 
 def _device(device) -> torch.device:
@@ -142,6 +184,20 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
     """Random weights from `seed`, built on `device` by a generator
     there."""
     return Transformer(cfg, seed, device)
+
+
+def first_layers(model: Transformer, n: int) -> Transformer:
+    """The model's first n layers as a model of its own: the same modules
+    (embedding, those blocks, final norm, head, the encoder), cfg's
+    n_layers n.  n is a whole number of repeat units."""
+    if n % len(block_pattern(model.cfg)) or not 0 < n <= len(model.blocks):
+        raise ValueError(f"{model.cfg.name}: no model of its first {n} "
+                         "layers")
+    view = copy.copy(model)
+    view._modules = dict(model._modules)    # the original's stays whole
+    view.blocks = model.blocks[:n]
+    view.cfg = dataclasses.replace(model.cfg, n_layers=n)
+    return view
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -160,18 +216,29 @@ def _flat(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+# the dense (in, out) weights of each layer kind, nn.Linears in the port
+_LINEARS = {"tm": ("wr", "wk", "wv", "wg", "wo", "lora_a", "wa"),
+            "cm": ("wk", "wv", "wr"),
+            "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj")}
+
+
 def jax_name(path: str) -> tuple[str, bool]:
     """The port's parameter name for a leaf of one JAX layer, and whether
     its array is transposed: an (in, out) dense weight `attn.wq` is
     `attn.wq.weight` of an nn.Linear (out, in), its bias `attn.bq` is
-    `attn.wq.bias`; the MoE's stacked experts and float32 router keep
-    JAX's layout (`moe.experts.wi` is `moe.wi`)."""
+    `attn.wq.bias` (likewise `xattn.*` and `mlp.*`); the dense weights of
+    `tm`, `cm` and `mamba` (`_LINEARS`) are nn.Linears too, and their
+    other leaves keep JAX's name and layout; the MoE's stacked experts
+    and float32 router keep JAX's layout (`moe.experts.wi` is
+    `moe.wi`)."""
     parts = path.split(".")
-    if parts[0] in ("attn", "mlp"):
+    if parts[0] in ("attn", "xattn", "mlp"):
         name = parts[1]
         if name.startswith("b"):
             return f"{parts[0]}.w{name[1:]}.bias", False
         return f"{parts[0]}.{name}.weight", True
+    if parts[1] in _LINEARS.get(parts[0], ()):
+        return f"{parts[0]}.{parts[1]}.weight", True
     if parts[0] == "moe" and parts[1] == "experts":
         return f"moe.{parts[2]}", False
     return path, False
@@ -180,12 +247,18 @@ def jax_name(path: str) -> tuple[str, bool]:
 def params_from_jax(cfg, tree: dict, device="cuda") -> Transformer:
     """A `Transformer` holding the JAX parameter pytree `tree` (its
     leaves numpy arrays: `jax.tree.map(np.asarray, params)`): the leading
-    repeat axis of tree["blocks"] unstacked into layers, dense weights
-    transposed into nn.Linear's layout, the router kept in float32, the
-    tied head kept as embed.T.  Every parameter is loaded (strict)."""
+    repeat axis of tree["blocks"] unstacked into layers (and whisper's
+    tree["enc_blocks"], stacked over n_enc_layers, into enc_blocks),
+    dense weights transposed into nn.Linear's layout, the router and
+    a_log kept in float32, the tied head kept as embed.T.  Every
+    parameter is loaded (strict)."""
     model = Transformer(cfg, 0, device)
     sd = {"embed": tree["embed"]}
-    sd.update((f"final_ln.{k}", v) for k, v in tree["final_ln"].items())
+    for top in ("final_ln", "enc_final_ln"):
+        sd.update((f"{top}.{k}", v) for k, v in tree.get(top, {}).items())
+    for top in ("pos_embed", "enc_pos_embed"):
+        if top in tree:
+            sd[top] = tree[top]
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = tree["lm_head"].T
     plen = len(block_pattern(cfg))
@@ -196,6 +269,11 @@ def params_from_jax(cfg, tree: dict, device="cuda") -> Transformer:
             layer = r * plen + int(slot[len("slot"):])
             sd[f"blocks.{layer}.{name}"] = leaf[r].T if transpose \
                 else leaf[r]
+    for path, leaf in _flat(tree.get("enc_blocks", {})):
+        name, transpose = jax_name(path)
+        for i in range(leaf.shape[0]):
+            sd[f"enc_blocks.{i}.{name}"] = leaf[i].T if transpose \
+                else leaf[i]
     model.load_state_dict({k: _tensor(v, device) for k, v in sd.items()},
                           strict=True)
     return model
@@ -207,7 +285,8 @@ def params_from_jax(cfg, tree: dict, device="cuda") -> Transformer:
 
 def _ffn(lp: Block, h, cfg):
     """The layer's mlp, moe or moe + mlp on the normed h (the MoE's aux
-    loss is a training term: dropped here)."""
+    loss is a training term: dropped here).  RWKV's channel mix is the
+    caller's: it carries a token."""
     if lp.ffn == "mlp":
         return L.mlp(lp.mlp, h, cfg)
     f, _aux = MOE.moe_apply(lp.moe, h, cfg)
@@ -216,12 +295,29 @@ def _ffn(lp: Block, h, cfg):
     return f
 
 
-def _apply_slot(lp: Block, x, cfg, positions):
-    """One layer at prefill: the chunked online-softmax attention core
-    (never the (S x S) score matrix), chunk cfg.attn_chunk."""
+def _apply_slot(lp: Block, x, cfg, positions, enc_out=None):
+    """One layer at prefill: attention through the chunked online-softmax
+    core (never the (S x S) score matrix), chunk cfg.attn_chunk; Mamba's
+    scan; RWKV's time mix in its chunked form where S allows, its token
+    shifts from zeros; whisper's cross-attention over enc_out."""
     h = _norm(cfg, lp.ln1, x)
-    x = x + L.attn_chunked(lp.attn, h, cfg, positions, chunk=cfg.attn_chunk)
-    return x + _ffn(lp, _norm(cfg, lp.ln2, x), cfg)
+    if lp.mixer == "attn":
+        a = L.attn_chunked(lp.attn, h, cfg, positions, chunk=cfg.attn_chunk)
+    elif lp.mixer == "mamba":
+        a, _ = MAMBA.mamba_apply(lp.mamba, h, cfg, mode="train")
+    else:
+        a, _ = RWKV.timemix_apply(lp.tm, h, None, cfg, mode="chunked")
+    x = x + a
+    h = _norm(cfg, lp.ln2, x)
+    if lp.ffn == "rwkv_cm":
+        x = x + RWKV.channelmix_apply(lp.cm, h, None, cfg)
+    else:
+        x = x + _ffn(lp, h, cfg)
+    if enc_out is not None:
+        hx = _norm(cfg, lp.ln_x, x)
+        kv = L.encode_kv(lp.xattn, enc_out, cfg)
+        x = x + L.cross_attention(lp.xattn, hx, kv, cfg)
+    return x
 
 
 def _embed_inputs(model, batch, cfg):
@@ -230,10 +326,26 @@ def _embed_inputs(model, batch, cfg):
     return model.embed[batch["tokens"]].to(cfg.compute_dtype)
 
 
-def _backbone(model, x, cfg, positions):
+def _encode(model, batch):
+    """Whisper's encoder over batch["enc_embeds"] (B, S_enc, D), S_enc
+    at most enc_seq: its positions added, non-causal attention, then
+    enc_final_ln."""
+    cfg = model.cfg
+    x = batch["enc_embeds"].to(cfg.compute_dtype)
+    b, s = x.shape[:2]
+    x = x + model.enc_pos_embed[:s].to(x.dtype)[None]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for lp in model.enc_blocks:
+        h = _norm(cfg, lp.ln1, x)
+        x = x + L.attn_full(lp.attn, h, cfg, positions, causal=False)
+        x = x + L.mlp(lp.mlp, _norm(cfg, lp.ln2, x), cfg)
+    return _norm(cfg, model.enc_final_ln, x)
+
+
+def _backbone(model, x, cfg, positions, enc_out=None):
     """Every layer in order, then the final norm."""
     for lp in model.blocks:
-        x = _apply_slot(lp, x, cfg, positions)
+        x = _apply_slot(lp, x, cfg, positions, enc_out)
     return _norm(cfg, model.final_ln, x)
 
 
@@ -247,34 +359,93 @@ def _logits(model, x, cfg):
 # public entry points
 # ---------------------------------------------------------------------------
 
+def _slot_cache(cfg, mixer: str, batch_size: int, max_seq: int, device):
+    """One layer's zero decode state (JAX's `_slot_cache`)."""
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    hd, bf16 = cfg.head_dim, torch.bfloat16
+    if mixer == "attn":
+        shape = (batch_size, max_seq, cfg.n_kv_heads, hd)
+        st = {"k": zeros(shape, bf16), "v": zeros(shape, bf16)}
+    elif mixer == "mamba":
+        di = cfg.mamba_d_inner or 2 * cfg.d_model
+        st = {"conv": zeros((batch_size, MAMBA.D_CONV - 1, di),
+                            cfg.compute_dtype),
+              "ssm": zeros((batch_size, di, MAMBA.D_STATE), torch.float32)}
+    else:
+        h, d = cfg.n_heads, cfg.d_model
+        st = {"wkv": zeros((batch_size, h, d // h, d // h), torch.float32),
+              "tm_x": zeros((batch_size, d), cfg.compute_dtype),
+              "cm_x": zeros((batch_size, d), cfg.compute_dtype)}
+    if cfg.family == "encdec":
+        shape = (batch_size, cfg.enc_seq, cfg.n_kv_heads, hd)
+        st["ck"], st["cv"] = zeros(shape, bf16), zeros(shape, bf16)
+    return st
+
+
 def init_cache(cfg, batch_size: int, max_seq: int, device="cuda") -> list:
-    """Decode state: one {"k", "v"} of (B, max_seq, Hkv, hd) zeros in
-    bfloat16 per layer."""
+    """Decode state: one dict of zeros per layer, as its mixer needs
+    (module docstring)."""
     device = _device(device)
-    shape = (batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-            for _ in layer_slots(cfg)]
+    return [_slot_cache(cfg, mixer, batch_size, max_seq, device)
+            for mixer, _ in layer_slots(cfg)]
+
+
+def encode_cross(model, cache: list, batch: dict) -> list:
+    """Whisper: run the encoder over batch["enc_embeds"] (B, enc_seq, D)
+    and write each decoder layer's cross-attention K and V of its output
+    into the cache's ck/cv, in place, in their bfloat16."""
+    enc_out = _encode(model, batch)
+    for lp, st in zip(model.blocks, cache):
+        k, v = L.encode_kv(lp.xattn, enc_out, model.cfg)
+        st["ck"].copy_(k)
+        st["cv"].copy_(v)
+    return cache
 
 
 def _decode_slot(lp: Block, st: dict, x, cfg, pos: int):
+    """One layer, one position: the mixer's and the channel mix's state
+    replaced in `st` (RWKV carries the normed h of ln1 and ln2)."""
     h = _norm(cfg, lp.ln1, x)
-    a, st["k"], st["v"] = L.attn_decode(lp.attn, h, cfg, st["k"], st["v"],
-                                        pos)
+    if lp.mixer == "attn":
+        a, st["k"], st["v"] = L.attn_decode(lp.attn, h, cfg, st["k"],
+                                            st["v"], pos)
+    elif lp.mixer == "mamba":
+        a, ms = MAMBA.mamba_apply(lp.mamba, h, cfg, mode="decode",
+                                  state={"conv": st["conv"],
+                                         "ssm": st["ssm"]})
+        st["conv"], st["ssm"] = ms["conv"], ms["ssm"]
+    else:
+        a, st["wkv"] = RWKV.timemix_apply(lp.tm, h, st["tm_x"], cfg,
+                                          mode="decode", state=st["wkv"])
+        st["tm_x"] = h[:, 0]
     x = x + a
-    return x + _ffn(lp, _norm(cfg, lp.ln2, x), cfg)
+    h = _norm(cfg, lp.ln2, x)
+    if lp.ffn == "rwkv_cm":
+        x = x + RWKV.channelmix_apply(lp.cm, h, st["cm_x"], cfg)
+        st["cm_x"] = h[:, 0]
+    else:
+        x = x + _ffn(lp, h, cfg)
+    if cfg.family == "encdec":
+        hx = _norm(cfg, lp.ln_x, x)
+        x = x + L.cross_attention(lp.xattn, hx, (st["ck"], st["cv"]), cfg)
+    return x
 
 
 def forward_decode(model, cache: list, batch: dict, pos: int):
     """One-token decode step at position `pos` (a Python int below the
-    cache's S_max).  batch: {"token": (B,)} or, for embed_stub configs,
-    {"embed": (B, D)}.  Writes the step's K and V into `cache` in place;
-    returns (logits (B, vocab_padded), cache)."""
+    cache's S_max where it has attention).  batch: {"token": (B,)} or,
+    for embed_stub configs other than whisper, {"embed": (B, D)}.
+    Updates `cache` in place (K and V written at `pos`, recurrent states
+    replaced); returns (logits (B, vocab_padded), cache)."""
     cfg = model.cfg
     if cfg.embed_stub and "embed" in batch:
         x = batch["embed"][:, None].to(cfg.compute_dtype)
     else:
         x = model.embed[batch["token"][:, None]].to(cfg.compute_dtype)
+    if cfg.family == "encdec":
+        x = x + model.pos_embed[pos:pos + 1].to(x.dtype)[None]
     for lp, st in zip(model.blocks, cache):
         x = _decode_slot(lp, st, x, cfg, pos)
     x = _norm(cfg, model.final_ln, x)
@@ -283,11 +454,17 @@ def forward_decode(model, cache: list, batch: dict, pos: int):
 
 def forward_prefill(model, batch: dict):
     """Full-sequence prefill returning last-token logits (B,
-    vocab_padded).  batch: {"tokens": (B, S)} or, for embed_stub configs,
-    {"embeds": (B, S, D)}."""
+    vocab_padded).  batch: {"tokens": (B, S)} or, for embed_stub configs
+    other than whisper, {"embeds": (B, S, D)}; whisper also takes
+    {"enc_embeds": (B, S_enc, D)}.  Like JAX's, it writes no decode
+    state."""
     cfg = model.cfg
     x = _embed_inputs(model, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x = _backbone(model, x, cfg, positions)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(model, batch)
+        x = x + model.pos_embed[:s].to(x.dtype)[None]
+    x = _backbone(model, x, cfg, positions, enc_out)
     return _logits(model, x[:, -1:], cfg)[:, 0]

@@ -1140,3 +1140,75 @@ def test_lm_smollm_full_decode_matches_prefill(dev):
         assert torch.isfinite(full).all() and torch.isfinite(logits).all()
         torch.testing.assert_close(logits.float(), full.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b",
+                                  "whisper-medium"])
+def test_lm_recurrent_and_encdec_reduced_on_card_match_cpu(dev, arch):
+    """The ssm, hybrid and encdec families, reduced, float32 weights on
+    the CPU and a copy on the card: prefill logits within rtol = atol =
+    1e-4 (rwkv at 128 positions, its chunked WKV form), 8 greedy decode
+    steps within 1e-3, tokens equal; whisper with its cross cache filled
+    by its encoder over enc_seq frames on each device.  No kernel
+    launched."""
+    import copy
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = C.get_config(arch).reduced()
+    cpu = T.init_params(cfg, 0, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    s = 128 if cfg.family == "ssm" else 32
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, s), generator=gen)}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                          generator=gen)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    build.reset_launch_counts()
+    want = T.forward_prefill(cpu, batch)
+    got = T.forward_prefill(card, on_card).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    cc = T.init_cache(cfg, 2, 8, "cpu")
+    gc = T.init_cache(cfg, 2, 8, dev)
+    if cfg.family == "encdec":
+        T.encode_cross(cpu, cc, batch)
+        T.encode_cross(card, gc, on_card)
+    tok = batch["tokens"][:, 0]
+    for i in range(8):
+        lc, cc = T.forward_decode(cpu, cc, {"token": tok}, i)
+        lg, gc = T.forward_decode(card, gc, {"token": tok.to(dev)}, i)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+        tok = lc[:, :cfg.vocab].argmax(-1)
+        assert torch.equal(lg[:, :cfg.vocab].argmax(-1).cpu(), tok)
+    assert not any(build.launch_counts().values())
+
+
+def test_lm_rwkv_full_decode_matches_prefill(dev):
+    """rwkv6-7b at its published width (d_model 4,096, 64 heads), built
+    on the card: step-by-step decode of a 128-token prompt (the
+    prefill's chunked WKV form) against the prefill's last-position
+    logits on its first 4 of 32 layers (`first_layers`): a float32 copy
+    of the weights at JAX's tolerance (2e-2), the bf16 model within 2^-3
+    (chip_smoke.py LM_TOL_WKV_BF16: bf16 puts RWKV's logits 0.19 from
+    float32's there).  At all 32 layers the bf16 prefill's logits are
+    finite.  The smoke also holds the copy at 8, 16 and 32 layers."""
+    import copy
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = C.get_config("rwkv6-7b")
+    model = T.init_params(cfg, 0, dev)
+    m32 = copy.deepcopy(model).to(torch.float32)
+    m32.cfg = dataclasses.replace(cfg, dtype="float32",
+                                  param_dtype_str="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (4, 128), generator=gen, device=dev)
+    assert torch.isfinite(T.forward_prefill(model, {"tokens": toks})).all()
+    for m, tol in ((m32, 2e-2), (model, 2 ** -3)):
+        m = T.first_layers(m, 4)
+        full = T.forward_prefill(m, {"tokens": toks}).float()
+        cache = T.init_cache(m.cfg, 4, 1, dev)
+        for i in range(128):
+            logits, cache = T.forward_decode(m, cache,
+                                             {"token": toks[:, i]}, i)
+        torch.testing.assert_close(logits.float(), full, rtol=tol, atol=tol)

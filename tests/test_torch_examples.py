@@ -33,6 +33,7 @@ def _one_thread():
     ("bigint_service", [], "over 2 shards"),
     ("serving_frontend", [], "24 concurrent requests served exactly"),
     ("serving_frontend", ["--chaos-smoke"], "CHAOS SMOKE PASS"),
+    ("long_context_rwkv", [], "position 524287"),
 ])
 def test_example_runs_on_the_cpu(capsys, name, args, expect):
     mod = importlib.import_module(f"repro_torch.examples.{name}")

@@ -1,7 +1,9 @@
 """The port's serving launcher (`repro_torch/launch/serve.py`) on the CPU:
-`serve_lm` at the reduced smollm gives JAX's greedy tokens for the same
-weights, `serve_bigint` divides exactly, and the module runs from a
-fresh interpreter.  Decode logits agree within rtol = atol = 1e-3 (the
+`serve_lm` at the reduced smollm, rwkv6-7b, jamba-1.5-large and
+whisper-medium gives JAX's greedy tokens for the same weights (whisper
+over the zero cross cache, as JAX's serve loop decodes it),
+`serve_bigint` divides exactly, and the module runs from a fresh
+interpreter.  Decode logits agree within rtol = atol = 1e-3 (the
 bfloat16 KV cache; see tests/test_torch_lm_model.py); the tokens must be
 equal."""
 
@@ -47,33 +49,42 @@ def _to_jax(model, jcfg):
     template = jax.tree.map(np.asarray,
                             JT.init_params(jcfg, jax.random.PRNGKey(0)))
     plen = len(T.block_pattern(jcfg))
-    blocks = {}
-    for path, leaf in T._flat(template["blocks"]):
-        slot, rest = path.split(".", 1)
-        name, transpose = T.jax_name(rest)
-        reps = [sd[f"blocks.{r * plen + int(slot[4:])}.{name}"]
-                for r in range(leaf.shape[0])]
-        node = blocks
-        keys = path.split(".")
-        for key in keys[:-1]:
-            node = node.setdefault(key, {})
-        node[keys[-1]] = np.stack([x.T if transpose else x for x in reps])
-    tree = {"embed": sd["embed"], "blocks": blocks,
-            "final_ln": {k[len("final_ln."):]: v for k, v in sd.items()
-                         if k.startswith("final_ln.")}}
+
+    def stacked(top, layer_of):
+        out = {}
+        for path, leaf in T._flat(template[top]):
+            rest = path.split(".", 1)[1] if top == "blocks" else path
+            name, transpose = T.jax_name(rest)
+            reps = [sd[f"{top}.{layer_of(path, r)}.{name}"]
+                    for r in range(leaf.shape[0])]
+            node = out
+            keys = path.split(".")
+            for key in keys[:-1]:
+                node = node.setdefault(key, {})
+            node[keys[-1]] = np.stack([x.T if transpose else x
+                                       for x in reps])
+        return out
+
+    tree = {"embed": sd["embed"],
+            "blocks": stacked("blocks", lambda path, r: r * plen
+                              + int(path.split(".")[0][4:]))}
+    for top in ("final_ln", "enc_final_ln"):
+        if top in template:
+            tree[top] = {k[len(top) + 1:]: v for k, v in sd.items()
+                         if k.startswith(f"{top}.")}
+    for top in ("pos_embed", "enc_pos_embed"):
+        if top in template:
+            tree[top] = sd[top]
+    if "enc_blocks" in template:
+        tree["enc_blocks"] = stacked("enc_blocks", lambda path, r: r)
     if "lm_head.weight" in sd:
         tree["lm_head"] = sd["lm_head.weight"].T
     assert jax.tree.structure(tree) == jax.tree.structure(template)
     return tree
 
 
-def test_serve_lm_matches_jax_greedy(capsys):
-    """serve_lm's tokens (reduced smollm, seed-0 weights, 8 steps at
-    batch 2) equal JAX's greedy decode (repro/launch/serve.py's loop) over
-    the same weights."""
-    args = _args()
-    got = serve.serve_lm(args)
-    assert "decoded 8 tokens x batch 2" in capsys.readouterr().out
+def _jax_greedy(args):
+    """repro/launch/serve.py's loop over the port's seed-0 weights."""
     jcfg = JC.get_config(args.arch).reduced()
     tcfg = TC.get_config(args.arch).reduced()
     params = _to_jax(T.init_params(tcfg, 0, "cpu"), jcfg)
@@ -85,7 +96,29 @@ def test_serve_lm_matches_jax_greedy(capsys):
         logits, cache = step(params, cache, {"token": tok}, jnp.int32(i))
         tok = jnp.argmax(logits[:, : jcfg.vocab], -1).astype(jnp.int32)
         want.append(np.asarray(tok).tolist())
-    assert got == want
+    return want
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b",
+                                  "whisper-medium"])
+def test_serve_lm_families_match_jax_greedy(capsys, arch):
+    """The ssm, hybrid and encdec families: serve_lm's 8 greedy tokens at
+    batch 2 equal JAX's (whisper: no encoder pass, the zero cross cache,
+    on both sides)."""
+    args = _args(arch=arch)
+    got = serve.serve_lm(args)
+    assert "decoded 8 tokens x batch 2" in capsys.readouterr().out
+    assert got == _jax_greedy(args)
+
+
+def test_serve_lm_matches_jax_greedy(capsys):
+    """serve_lm's tokens (reduced smollm, seed-0 weights, 8 steps at
+    batch 2) equal JAX's greedy decode (repro/launch/serve.py's loop) over
+    the same weights."""
+    args = _args()
+    got = serve.serve_lm(args)
+    assert "decoded 8 tokens x batch 2" in capsys.readouterr().out
+    assert got == _jax_greedy(args)
 
 
 def test_serve_bigint_exact(capsys):
@@ -104,10 +137,12 @@ def test_serve_runs_as_a_module():
 
 
 def test_serve_refuses_what_is_not_there(capsys):
-    """An unported family raises; --device cuda without a card stops with
-    a usage error, not a run on the CPU."""
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "whisper-medium", "--device", "cpu"])
+    """An arch the registry lacks is a usage error; --device cuda without
+    a card stops with a usage error, not a run on the CPU."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "whisper-large", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
     if torch.cuda.is_available():
         return
     with pytest.raises(SystemExit) as exc:
