@@ -148,7 +148,30 @@ Phases, each of which raises on failure:
      has attention; (d) as child processes started together, `python -m
      repro_torch.launch.serve` for the LM demo (smollm, and rwkv6-7b)
      and `--bigint` (256 limbs x 64, "all exact"), and the long-context
-     RWKV example.  The phase prints its seconds per part.
+     RWKV example.  The phase prints its seconds per part;
+ 10. LM training (`repro_torch.train`, `repro_torch.optim`,
+     `repro_torch.checkpoint`), which launches none of the six kernels
+     (the counts stay 0): (a) all ten archs, reduced, in float32, one
+     set of weights on the CPU and a copy on the card: one
+     train step on the same batch: the loss (rtol 1e-4), every gradient
+     (rtol 1e-3, atol 1e-5 x the leaf's max; Jamba's bf16-stream leaves
+     2^-8 x max), the AdamW update of the card's gradients (every new
+     parameter, moment and the step) against the CPU's update of the
+     same gradients, then a make_train_step step's loss on each;
+     (b) smollm-135m
+     at its published width and depth (30 layers, d 576, bf16, remat)
+     trained 10 steps by `Trainer` on the synthetic stream at batch 8 x
+     2,048 with AdamW in float32 state: every loss finite, the mean of
+     the last 3 below the first, and the last async checkpoint restored
+     onto the card bit for bit; (c) as child processes, `python -m
+     repro_torch.launch.train` on the reduced smollm with
+     --deterministic, once with a failure injected at step 12 and once
+     without: equal final parameters (sha256), 1 and 0 restarts; (d)
+     (b)'s step timed with CUDA events (median of 5 after 2 warm-ups),
+     tokens/s, the device's busy share over 2 steps, peak memory and
+     the bound from the shapes (`train_bound`); (e) as child processes
+     started with (c), `python -m repro_torch.launch.train --arch
+     smollm-135m --reduced --steps 20` and the e2e training example.
 
 The services of phases 4, 5, 5b, 5c, 5d and 7 run through their bucket
 graphs; where a phase counts a service call's launches exactly, it
@@ -157,7 +180,7 @@ eager warm-up launches too.  Phases 7, 8 and 9 run after 5d, and 7's
 timing after 6b.
 
 The kernel launch counters are set to 0 just before each of phases 4,
-4b, 4c, 5, 5b, 5c, 5d, 7, 8 and 9 and read just after it.  Details go to
+4b, 4c, 5, 5b, 5c, 5d, 7, 8, 9 and 10 and read just after it.  Details go to
 chiprun_out/chip_smoke.json.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, times and bounds.  Exits non-zero
@@ -172,6 +195,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import random
@@ -226,7 +250,8 @@ PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                 "sharded_path": ("mul_batch", "powdiff", "update",
                                  "correct", "barrett"),
                 "dryrun": ("powdiff", "update", "correct"),
-                "lm_serve": ()}
+                "lm_serve": (),
+                "lm_train": ()}
 # limbs at 2^15 and 2^18 bits, the sizes of the frontend and pair phases
 M15, M18 = 2 ** 15 // 16, 2 ** 18 // 16
 # the wide division's limbs, past the CUDA-core finalization's ~29,000
@@ -293,6 +318,31 @@ LM_TOL_BF16 = 2 ** -4
 LM_WKV_LAYERS = 4
 LM_WKV_F32 = {4: LM_TOL_JAX, 8: LM_TOL_JAX, 16: 2 ** -5, 32: 2 ** -2}
 LM_TOL_WKV_BF16 = 2 ** -3
+# phase 10, LM training.  (a) card against CPU, float32, at batch 2 x 64
+# positions (128 for rwkv, its chunked WKV form): the loss (rtol 1e-4);
+# the gradients at the tolerances of tests/test_torch_train_model.py,
+# rtol 1e-3 with atol 1e-5 x the leaf's max, and 2^-8 x max for the
+# leaves Jamba's loss reaches only through its bf16 scan streams (a
+# 1-ulp change moves them by up to 1.2e-3 x max); the AdamW update of
+# the card's gradients on both devices, parameters rtol 1e-5 with atol
+# 1e-5 lr, moments rtol 1e-5 with atol 1e-5 x max.  The update is held
+# on the same gradients: AdamW moves a parameter by lr g / (|g| + eps),
+# so a gradient element near eps = 1e-8 turns the 1e-5 x max the
+# gradients may differ by into up to ~lr (0.045 lr read at qwen2-vl's
+# wq, NVIDIA H100 80GB HBM3, 700 W).  Then one make_train_step step on
+# each device from there: its loss (rtol 1e-4).
+TRAIN_TOL_LOSS = 1e-4
+TRAIN_TOL_GRAD = (1e-3, 1e-5)
+TRAIN_STREAM_LEAVES = ("mamba.dt_bias", "mamba.a_log", "mamba.x_proj",
+                       "mamba.dt_proj")
+TRAIN_STREAM_ATOL = 2 ** -8
+TRAIN_TOL_UPDATE = (1e-5, 1e-5)
+TRAIN_LR = 3e-3
+# (b) smollm-135m at its published width and depth: Trainer steps at
+# batch x positions, a checkpoint every TRAIN_CKPT_EVERY steps; (d) its
+# step timed after TRAIN_WARMUP steps
+TRAIN_FULL = ("smollm-135m", 8, 2048)
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_WARMUP, TRAIN_TIMED = 10, 5, 2, 5
 
 
 def log(*a):
@@ -540,7 +590,8 @@ class Smoke:
                          ("frontend_chaos", self.frontend_chaos),
                          ("sharded_path", self.sharded_path),
                          ("dryrun", self.dryrun),
-                         ("lm_serve", self.lm_serve)):
+                         ("lm_serve", self.lm_serve),
+                         ("lm_train", self.lm_train)):
             self.build.reset_launch_counts()
             self.phase(name, fn)
             got = self.build.launch_counts()
@@ -2936,6 +2987,285 @@ class Smoke:
         if failed:
             raise AssertionError("\n".join(failed))
         return out
+
+    # -- phase 10: LM training ---------------------------------------------
+
+    def lm_train(self):
+        """The training path (`repro_torch.train`), which launches none of
+        the six kernels: the child processes of (c) and (e) start first
+        and run beside (a); (b) and its timing (d) run after they end."""
+        from repro_torch import configs as C
+        rep = self.report["lm_train"] = {"reduced": {}, "seconds": {}}
+        t0 = time.perf_counter()
+        procs = self.train_children()
+        for arch in LM_ARCHS:
+            rep["reduced"][arch] = self.train_reduced(C, arch)
+        rep["seconds"]["reduced"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["cli"] = self.train_children_check(procs)
+        rep["seconds"]["cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["full"] = self.train_full(C)
+        rep["seconds"]["full"] = time.perf_counter() - t0
+        log(f"lm_train seconds: {json.dumps(rep['seconds'])}")
+
+    @staticmethod
+    def train_batch(cfg, b, s, gen, device):
+        """A train batch (B, S): labels, tokens or (an embed_stub
+        decoder-only arch) embeddings, and whisper's 100 frames."""
+        import torch
+        batch = {"labels": torch.randint(0, cfg.vocab, (b, s), generator=gen)}
+        if cfg.embed_stub and cfg.family != "encdec":
+            batch["embeds"] = torch.randn((b, s, cfg.d_model), generator=gen)
+        else:
+            batch["tokens"] = torch.randint(0, cfg.vocab, (b, s),
+                                            generator=gen)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = torch.randn((b, 100, cfg.d_model),
+                                              generator=gen)
+        return {k: v.to(device) for k, v in batch.items()}
+
+    def train_close(self, what, got, want, rtol, atol):
+        """Max |got - want| / max |want|; raises unless every element is
+        within rtol and atol."""
+        torch = self.torch
+        got, want = got.detach().float().cpu(), want.detach().float().cpu()
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            err = (got - want).abs().max().item()
+            raise AssertionError(f"{what}: max abs err {err} past rtol "
+                                 f"{rtol}, atol {atol}")
+        scale = want.abs().max().item()
+        return (got - want).abs().max().item() / scale if scale else 0.0
+
+    def train_reduced(self, C, arch):
+        """One train step of the reduced arch in float32, card against
+        CPU (module docstring, 10a)."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw
+        from repro_torch.train import step as TS
+        cfg = C.get_config(arch).reduced()
+        ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
+        cpu = T.init_params(cfg, 0, "cpu")
+        card = copy.deepcopy(cpu).to(self.dev)
+        gen = torch.Generator().manual_seed(0)
+        batch = self.train_batch(cfg, 2, self.lm_prompt(cfg), gen, "cpu")
+        on_card = {k: v.to(self.dev) for k, v in batch.items()}
+        rtol, atol = TRAIN_TOL_GRAD
+
+        def leaf_atol(name, want):
+            frac = TRAIN_STREAM_ATOL if any(
+                k in name for k in TRAIN_STREAM_LEAVES) else atol
+            return frac * want.abs().max().item()
+
+        lc, mc, gc = TS.make_grad_fn(cfg)(cpu, batch)
+        lg, mg, gg = TS.make_grad_fn(cfg)(card, on_card)
+        rec = dict(loss=lc.item(), aux=mc["aux"].item(),
+                   loss_err=self.train_close(f"{arch} loss", lg, lc,
+                                             TRAIN_TOL_LOSS, 0))
+        rec["grad_err"] = max(
+            self.train_close(f"{arch} grad {k}", gg[k], g, rtol,
+                             leaf_atol(k, g)) for k, g in gc.items())
+        # the update: the card's gradients applied on both devices
+        card_g = {k: g.float() for k, g in gg.items()}
+        oc = TS.apply_grads(cpu, adamw.init_state(
+            dict(cpu.named_parameters()), ocfg),
+            {k: g.cpu() for k, g in card_g.items()}, ocfg)
+        og = TS.apply_grads(card, adamw.init_state(
+            dict(card.named_parameters()), ocfg), card_g, ocfg)
+        if not int(og["step"]) == int(oc["step"]) == 1:
+            raise AssertionError(f"{arch}: AdamW steps {og['step']}, "
+                                 f"{oc['step']}")
+        urtol, uatol = TRAIN_TOL_UPDATE
+        rec["param_err"] = max(
+            self.train_close(f"{arch} param {k}", q, p, urtol,
+                             uatol * TRAIN_LR)
+            for (k, p), q in zip(cpu.named_parameters(), card.parameters()))
+        rec["moment_err"] = max(
+            self.train_close(f"{arch} {m} {k}", og[m][k], t, urtol,
+                             uatol * t.abs().max().item())
+            for m in ("m", "v") for k, t in oc[m].items())
+        # then one make_train_step step from there on each device
+        step = TS.make_train_step(cfg, ocfg)
+        _, oc, mc = step(cpu, oc, batch)
+        _, og, mg = step(card, og, on_card)
+        rec["step_loss_err"] = self.train_close(
+            f"{arch} train step loss", mg["loss"], mc["loss"],
+            TRAIN_TOL_LOSS, 0)
+        if not all(torch.isfinite(p).all() for p in card.parameters()):
+            raise AssertionError(f"{arch}: non-finite parameters")
+        log(f"lm_train {arch} reduced, card vs CPU (float32): "
+            f"{json.dumps(rec)}")
+        return rec
+
+    def train_children(self):
+        """Start, together: (c) the training CLI on the reduced smollm
+        with --deterministic, with a failure injected at step 12 and
+        without (checkpoints every 5 steps); (e) the CLI for 20 steps and
+        the e2e example.  Returns {name: (argv, expected text, Popen)}."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        train = ["repro_torch.launch.train", "--arch", "smollm-135m",
+                 "--reduced"]
+        crash = train + ["--steps", "15", "--ckpt-every", "5",
+                         "--deterministic"]
+        runs = {"crash": (crash + ["--crash-at", "12"], "restarts=1"),
+                "no_crash": (crash, "restarts=0"),
+                "cli": (train + ["--steps", "20"], "final loss"),
+                "e2e_train": (["repro_torch.examples.e2e_train"],
+                              "trained 300 steps on cuda")}
+        return {name: (argv, want, subprocess.Popen(
+            [sys.executable, "-m", *argv], env=env, cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+            for name, (argv, want) in runs.items()}
+
+    def train_children_check(self, procs):
+        """Wait for the children of `train_children`: each exits 0 and
+        prints what it prints on success, and the crashed run's final
+        parameters equal the uninterrupted run's bit for bit."""
+        t0 = time.perf_counter()
+        out, failed = {}, []
+        for name, (argv, want, p) in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            lines = stdout.strip().splitlines()
+            out[name] = dict(seconds=time.perf_counter() - t0,
+                             rc=p.returncode, stdout=lines[-3:])
+            log(f"{' '.join(argv)}: rc {p.returncode}, {lines[-3:]}")
+            if p.returncode != 0 or want not in stdout:
+                failed.append(f"{' '.join(argv)}: rc {p.returncode}\n"
+                              f"{stdout[-2000:]}\n{stderr[-2000:]}")
+            digest = [x for x in lines if x.startswith("params sha256")]
+            out[name]["digest"] = digest[0].split()[2] if digest else None
+        if failed:
+            raise AssertionError("\n".join(failed))
+        if out["crash"]["digest"] != out["no_crash"]["digest"]:
+            raise AssertionError(
+                "a crash at step 12 and its restart from step 10 ended "
+                "with other parameters than an uninterrupted run: "
+                f"{out['crash']['digest']} != {out['no_crash']['digest']}")
+        log("crash at step 12 and restart on the card: final parameters "
+            f"equal bit for bit ({out['crash']['digest'][:16]}...)")
+        return out
+
+    def train_full(self, C):
+        """(b) smollm-135m at its published width and depth trained by
+        `Trainer`, its last checkpoint restored bit for bit; (d) its step
+        timed (module docstring)."""
+        import tempfile
+        torch = self.torch
+        from repro_torch.checkpoint import ckpt as CK
+        from repro_torch.data.synthetic import DataConfig
+        from repro_torch.optim import adamw
+        from repro_torch.train.trainer import Trainer, TrainerConfig
+        arch, b, s = TRAIN_FULL
+        cfg = C.get_config(arch)
+        ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            tr = Trainer(cfg, ocfg, TrainerConfig(
+                steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=d,
+                log_every=1), dcfg, device=self.dev)
+            st = tr.run()
+            train_s = time.perf_counter() - t0
+            tree, extra = CK.restore(d, device=self.dev)
+        losses = st.losses
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite,
+                                                     losses)):
+            raise AssertionError(f"{arch}: losses {losses}")
+        if not statistics.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+        if extra != {"next_step": TRAIN_STEPS}:
+            raise AssertionError(f"{arch}: checkpoint extra {extra}")
+        want = {"params": dict(tr.model.named_parameters()), "opt": tr.opt}
+        got_d, want_d = CK.digest(tree), CK.digest(want)
+        if got_d != want_d:
+            raise AssertionError(f"{arch}: the restored checkpoint differs "
+                                 "from the trained state")
+        params = list(tr.model.parameters())
+        rec = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                   dtype=cfg.dtype, remat=cfg.remat, batch=f"{b} x {s}",
+                   n_params=sum(p.numel() for p in params),
+                   losses=losses, restarts=st.restarts,
+                   trainer_s=train_s, checkpoint_restored="bit for bit",
+                   checkpoint_sha256=got_d)
+        del tree
+        rec.update(self.train_timing(tr, cfg, ocfg, b, s))
+        log(f"lm_train {arch} ({cfg.n_layers} layers, {rec['n_params']:,} "
+            f"params, bf16, batch {b} x {s}): {json.dumps(rec)}")
+        del tr
+        torch.cuda.empty_cache()
+        return rec
+
+    def train_timing(self, tr, cfg, ocfg, b, s):
+        """(d): the train step on the trained model, TRAIN_WARMUP steps,
+        then TRAIN_TIMED steps each timed with CUDA events (median), the
+        busy share over 2 steps (torch.profiler), peak memory, and the
+        bound (`train_bound`)."""
+        torch = self.torch
+        from repro_torch.train.step import make_train_step
+        step = make_train_step(cfg, ocfg)
+        state = {"model": tr.model, "opt": tr.opt, "i": TRAIN_STEPS}
+
+        def one():
+            batch = tr.batch(state["i"])
+            state["i"] += 1
+            state["model"], state["opt"], m = step(state["model"],
+                                                   state["opt"], batch)
+            return m["loss"]
+
+        for _ in range(TRAIN_WARMUP):
+            one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(TRAIN_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss = one()
+            e.record()
+            e.synchronize()
+            ms.append(a.elapsed_time(e))
+            if not torch.isfinite(loss):
+                raise AssertionError(f"non-finite loss {loss.item()}")
+        peak = torch.cuda.max_memory_allocated()
+        prof = self.device_share(lambda: (one(), one()))
+        step_ms = statistics.median(ms)
+        rec = dict(step_ms=step_ms, step_ms_all=ms,
+                   tokens_s=b * s / step_ms * 1e3,
+                   busy_share=prof["device_busy_share"],
+                   device_ms_per_step=None if prof["device_ms"] is None
+                   else prof["device_ms"] / 2,
+                   peak_bytes=peak)
+        rec.update(self.train_bound(tr.model, cfg, b, s))
+        return rec
+
+    def train_bound(self, model, cfg, b, s):
+        """The least time the card could take for one step (989 TFLOP/s
+        bf16, 3.35 TB/s: `roofline.flop_bound`): 6 N per token for the
+        forward and backward products plus 2 N for remat's second
+        forward (N = cfg.n_params()), the causal attention (half the
+        square, 2 B S (S + 1) H hd a layer forward) four times (forward,
+        its recompute, a backward of twice the forward); the bytes of
+        AdamW's pass (each parameter read and written, its float32
+        gradient read, m and v read and written)."""
+        from repro_torch.models import transformer as T
+        n = cfg.n_params()
+        n_attn = sum(1 for mixer, _ in T.layer_slots(cfg) if mixer == "attn")
+        attn = 2 * n_attn * b * s * (s + 1) * cfg.n_heads * cfg.head_dim
+        flops = (8 if cfg.remat else 6) * n * b * s \
+            + (4 if cfg.remat else 3) * attn
+        nbytes = 0
+        for p in model.parameters():
+            nbytes += p.numel() * (2 * p.element_size() + 4 + 4 * 4)
+        bound, by = self.RL.flop_bound(flops, nbytes)
+        return dict(bound_flops=flops, bound_bytes=nbytes,
+                    bound_ms=bound * 1e3, bound_by=by, cfg_n_params=n)
 
     def kernel_line(self, launches):
         """One entry per kernel.  The times and the bound are sums over

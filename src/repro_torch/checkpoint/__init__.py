@@ -1,0 +1,2 @@
+"""Checkpoints: `ckpt` (npz shards and a manifest, atomic rename, one
+async save in flight, restore onto any device)."""

@@ -1,5 +1,5 @@
-"""The language models of the decoder-only families (`dense`, `moe`):
-`layers` (norms, RoPE/M-RoPE, GQA attention, MLPs), `moe` (top-k
-capacity dispatch) and `transformer` (the model, its KV cache, prefill
-and decode).  The port of `repro/models/`; the `ssm`, `hybrid` and
-`encdec` families are not ported yet."""
+"""The language models of every family: `layers` (norms, RoPE/M-RoPE,
+GQA attention, MLPs, the cross-entropy), `moe` (top-k capacity
+dispatch), `rwkv` (RWKV-6 time and channel mix), `mamba` (the selective
+SSM) and `transformer` (the model, its training loss, its decode cache,
+prefill and decode).  The port of `repro/models/` but `sharding.py`."""

@@ -11,7 +11,9 @@ Each layer is an `nn.Module` holding its parameters (`Attention`, `MLP`,
 where JAX takes its parameter dict (`attn_full(p, x, cfg, positions)`).
 The dense projections are `nn.Linear`s whose (out, in) weight is a
 transposed view of an (in, out) array, JAX's layout.  Parameters are
-built on the generator's device and need no gradient (serving only).
+built on the generator's device with `requires_grad=False`, so serving
+records no autograd graph; the train step turns gradients on for the
+model it trains (`repro_torch/train/step.py`).
 """
 
 from __future__ import annotations
@@ -350,3 +352,12 @@ def activation(h, g, act: str):
 def mlp(p, x, cfg):
     g = dense(x, p.wg) if cfg.act == "swiglu" else None
     return dense(activation(dense(x, p.wi), g, cfg.act), p.wo)
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over all positions; logits (B, S, V) cast to float32,
+    labels (B, S) integers."""
+    logits = logits.float()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).mean()

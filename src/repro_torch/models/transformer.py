@@ -1,4 +1,4 @@
-"""Model assembly for serving (prefill and decode): the port of
+"""Model assembly for training, prefill and decode: the port of
 `repro/models/transformer.py` for every family.
 
 Families:
@@ -8,8 +8,6 @@ Families:
   hybrid       -- Jamba (Mamba and attention layers, MoE every other)
   encdec       -- Whisper (an encoder over frame embeddings, a causal
                   decoder with cross-attention)
-Training (`forward_train`, the chunked cross-entropy) is not ported yet
-(ROADMAP queue 1, slice 12).
 
 Layout: JAX scans one repeat unit of `block_pattern(cfg)` over
 parameters stacked on a leading repeat axis; the port unrolls the scan
@@ -26,10 +24,23 @@ encoder K and V.  `init_cache` makes them zeros, as JAX's does, and no
 entry point fills ck/cv: `encode_cross` does, from the encoder over
 given frames.
 
+Training: `forward_train` is JAX's (attention unmasked-full below 2,048
+positions and chunked from there, Mamba's scan, RWKV's chunked WKV
+where S allows, the MoE aux term summed over layers, the loss ce + 0.01
+aux), and its cross-entropy runs over CE_CHUNK-position chunks so the
+(B, S, V) logits never exist at once.  `cfg.remat` recomputes each
+layer and each CE chunk in the backward pass
+(`torch.utils.checkpoint`, JAX's `jax.checkpoint`).  Parameters are
+built with `requires_grad=False` (`layers.param`), so serving never
+records a graph; the train step turns gradients on for the model it
+trains (`train/step.py`).
+
 Public API:
   init_params(cfg, seed, device)               -> Transformer
   first_layers(model, n)                       -> Transformer (shared)
   params_from_jax(cfg, tree, device)           -> Transformer
+  state_from_jax(cfg, tree)                    -> {port name: array}
+  forward_train(model, batch[, cfg])           -> (loss, {"ce", "aux"})
   init_cache(cfg, batch, max_seq, device)      -> cache
   encode_cross(model, cache, batch)            -> cache (ck/cv filled)
   forward_prefill(model, batch)                -> last-token logits
@@ -48,6 +59,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import mamba as MAMBA
@@ -55,6 +67,9 @@ from . import moe as MOE
 from . import rwkv as RWKV
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+CE_CHUNK = 512
+# JAX's train mode: the full (S x S) attention below this many positions
+FULL_ATTN_MAX = 2048
 # whisper's decoder position table (JAX's init_params)
 POS_ROWS = 32768
 
@@ -244,15 +259,13 @@ def jax_name(path: str) -> tuple[str, bool]:
     return path, False
 
 
-def params_from_jax(cfg, tree: dict, device="cuda") -> Transformer:
-    """A `Transformer` holding the JAX parameter pytree `tree` (its
-    leaves numpy arrays: `jax.tree.map(np.asarray, params)`): the leading
-    repeat axis of tree["blocks"] unstacked into layers (and whisper's
+def state_from_jax(cfg, tree: dict) -> dict:
+    """The port's state dict, as numpy arrays, of a JAX pytree shaped like
+    `init_params`' (parameters, or their gradients): the leading repeat
+    axis of tree["blocks"] unstacked into layers (and whisper's
     tree["enc_blocks"], stacked over n_enc_layers, into enc_blocks),
-    dense weights transposed into nn.Linear's layout, the router and
-    a_log kept in float32, the tied head kept as embed.T.  Every
-    parameter is loaded (strict)."""
-    model = Transformer(cfg, 0, device)
+    dense weights transposed into nn.Linear's (out, in) layout (`jax_name`),
+    the tied head left as embed."""
     sd = {"embed": tree["embed"]}
     for top in ("final_ln", "enc_final_ln"):
         sd.update((f"{top}.{k}", v) for k, v in tree.get(top, {}).items())
@@ -274,35 +287,52 @@ def params_from_jax(cfg, tree: dict, device="cuda") -> Transformer:
         for i in range(leaf.shape[0]):
             sd[f"enc_blocks.{i}.{name}"] = leaf[i].T if transpose \
                 else leaf[i]
+    return sd
+
+
+def params_from_jax(cfg, tree: dict, device="cuda") -> Transformer:
+    """A `Transformer` holding the JAX parameter pytree `tree` (its
+    leaves numpy arrays: `jax.tree.map(np.asarray, params)`), laid out
+    by `state_from_jax`; the router and a_log stay float32.  Every
+    parameter is loaded (strict)."""
+    model = Transformer(cfg, 0, device)
+    sd = state_from_jax(cfg, tree)
     model.load_state_dict({k: _tensor(v, device) for k, v in sd.items()},
                           strict=True)
     return model
 
 
 # ---------------------------------------------------------------------------
-# block application (prefill)
+# block application (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _ffn(lp: Block, h, cfg):
-    """The layer's mlp, moe or moe + mlp on the normed h (the MoE's aux
-    loss is a training term: dropped here).  RWKV's channel mix is the
-    caller's: it carries a token."""
+    """The layer's mlp, moe or moe + mlp on the normed h, and the MoE's
+    aux load-balance term (None without a MoE).  RWKV's channel mix is
+    the caller's: it carries a token."""
     if lp.ffn == "mlp":
-        return L.mlp(lp.mlp, h, cfg)
-    f, _aux = MOE.moe_apply(lp.moe, h, cfg)
+        return L.mlp(lp.mlp, h, cfg), None
+    f, aux = MOE.moe_apply(lp.moe, h, cfg)
     if lp.ffn == "moe+mlp":
         f = f + L.mlp(lp.mlp, h, cfg)
-    return f
+    return f, aux
 
 
-def _apply_slot(lp: Block, x, cfg, positions, enc_out=None):
-    """One layer at prefill: attention through the chunked online-softmax
-    core (never the (S x S) score matrix), chunk cfg.attn_chunk; Mamba's
+def _apply_slot(lp: Block, x, cfg, positions, mode: str, enc_out=None):
+    """One layer over the whole sequence; returns (x, the MoE's aux term
+    or None).  Attention: at prefill, or in train mode from
+    FULL_ATTN_MAX positions, the chunked online-softmax core (never the
+    (S x S) score matrix), chunk cfg.attn_chunk; in train mode below
+    that, the full core.  Mamba's
     scan; RWKV's time mix in its chunked form where S allows, its token
     shifts from zeros; whisper's cross-attention over enc_out."""
     h = _norm(cfg, lp.ln1, x)
     if lp.mixer == "attn":
-        a = L.attn_chunked(lp.attn, h, cfg, positions, chunk=cfg.attn_chunk)
+        if mode == "prefill" or x.shape[1] >= FULL_ATTN_MAX:
+            a = L.attn_chunked(lp.attn, h, cfg, positions,
+                               chunk=cfg.attn_chunk)
+        else:
+            a = L.attn_full(lp.attn, h, cfg, positions)
     elif lp.mixer == "mamba":
         a, _ = MAMBA.mamba_apply(lp.mamba, h, cfg, mode="train")
     else:
@@ -310,14 +340,15 @@ def _apply_slot(lp: Block, x, cfg, positions, enc_out=None):
     x = x + a
     h = _norm(cfg, lp.ln2, x)
     if lp.ffn == "rwkv_cm":
-        x = x + RWKV.channelmix_apply(lp.cm, h, None, cfg)
+        f, aux = RWKV.channelmix_apply(lp.cm, h, None, cfg), None
     else:
-        x = x + _ffn(lp, h, cfg)
+        f, aux = _ffn(lp, h, cfg)
+    x = x + f
     if enc_out is not None:
         hx = _norm(cfg, lp.ln_x, x)
         kv = L.encode_kv(lp.xattn, enc_out, cfg)
         x = x + L.cross_attention(lp.xattn, hx, kv, cfg)
-    return x
+    return x, aux
 
 
 def _embed_inputs(model, batch, cfg):
@@ -326,27 +357,47 @@ def _embed_inputs(model, batch, cfg):
     return model.embed[batch["tokens"]].to(cfg.compute_dtype)
 
 
-def _encode(model, batch):
+def _remat(on: bool, fn, *args):
+    """fn(*args), recomputed in the backward pass where `on` (training
+    under cfg.remat) and autograd records."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _enc_layer(lp: Block, x, cfg, positions):
+    h = _norm(cfg, lp.ln1, x)
+    x = x + L.attn_full(lp.attn, h, cfg, positions, causal=False)
+    return x + L.mlp(lp.mlp, _norm(cfg, lp.ln2, x), cfg)
+
+
+def _encode(model, batch, cfg=None, train: bool = False):
     """Whisper's encoder over batch["enc_embeds"] (B, S_enc, D), S_enc
     at most enc_seq: its positions added, non-causal attention, then
-    enc_final_ln."""
-    cfg = model.cfg
+    enc_final_ln.  cfg: model.cfg unless given; `train` recomputes each
+    layer in the backward pass where cfg.remat."""
+    cfg = cfg or model.cfg
     x = batch["enc_embeds"].to(cfg.compute_dtype)
     b, s = x.shape[:2]
     x = x + model.enc_pos_embed[:s].to(x.dtype)[None]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for lp in model.enc_blocks:
-        h = _norm(cfg, lp.ln1, x)
-        x = x + L.attn_full(lp.attn, h, cfg, positions, causal=False)
-        x = x + L.mlp(lp.mlp, _norm(cfg, lp.ln2, x), cfg)
+        x = _remat(train and cfg.remat, _enc_layer, lp, x, cfg, positions)
     return _norm(cfg, model.enc_final_ln, x)
 
 
-def _backbone(model, x, cfg, positions, enc_out=None):
-    """Every layer in order, then the final norm."""
+def _backbone(model, x, cfg, positions, mode: str, enc_out=None):
+    """Every layer in order (in train mode each recomputed in the
+    backward pass where cfg.remat), then the final norm; returns (x, the
+    layers' aux summed in float32)."""
+    aux = x.new_zeros((), dtype=torch.float32)
+    remat = mode == "train" and cfg.remat
     for lp in model.blocks:
-        x = _apply_slot(lp, x, cfg, positions, enc_out)
-    return _norm(cfg, model.final_ln, x)
+        x, a = _remat(remat, _apply_slot, lp, x, cfg, positions, mode,
+                      enc_out)
+        if a is not None:
+            aux = aux + a
+    return _norm(cfg, model.final_ln, x), aux
 
 
 def _logits(model, x, cfg):
@@ -355,9 +406,56 @@ def _logits(model, x, cfg):
     return L.dense(x, model.lm_head)
 
 
+def _ce_chunk(model, xi, li, cfg):
+    """The summed CE of one chunk: logits in float32, the padded-vocab
+    tail at -1e30, logsumexp minus the gold logit."""
+    lg = _logits(model, xi, cfg).float()
+    vmask = torch.arange(lg.shape[-1], device=lg.device) < cfg.vocab
+    lg = torch.where(vmask, lg, -1e30)
+    gold = lg.gather(-1, li[..., None])[..., 0]
+    return (torch.logsumexp(lg, -1) - gold).sum()
+
+
+def _chunked_ce(model, x, labels, cfg):
+    """Mean CE over sequence chunks of CE_CHUNK positions (each chunk's
+    logits recomputed in the backward pass where cfg.remat); the
+    padded-vocab tail masked out."""
+    b, s, _ = x.shape
+    chunk = min(CE_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"{s} positions are no whole number of "
+                         f"{chunk}-position CE chunks")
+    labels = labels.long()
+    tot = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, s, chunk):
+        tot = tot + _remat(cfg.remat, _ce_chunk, model, x[:, i:i + chunk],
+                           labels[:, i:i + chunk], cfg)
+    return tot / (b * s)
+
+
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def forward_train(model, batch: dict, cfg=None):
+    """The training loss of a batch: {"tokens": (B, S)} or, for
+    embed_stub configs other than whisper, {"embeds": (B, S, D)};
+    "labels" (B, S); whisper also {"enc_embeds": (B, S_enc, D)}.  S is a
+    whole number of CE chunks.  cfg: model.cfg unless given (the same
+    weights under another policy, e.g. remat).  Returns (loss, {"ce",
+    "aux"}), float32 scalars, loss = ce + 0.01 * aux."""
+    cfg = cfg or model.cfg
+    x = _embed_inputs(model, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_out = _encode(model, batch, cfg, train=True)
+        x = x + model.pos_embed[:s].to(x.dtype)[None]
+    x, aux = _backbone(model, x, cfg, positions, "train", enc_out)
+    ce = _chunked_ce(model, x, batch["labels"], cfg)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
 
 def _slot_cache(cfg, mixer: str, batch_size: int, max_seq: int, device):
     """One layer's zero decode state (JAX's `_slot_cache`)."""
@@ -426,7 +524,7 @@ def _decode_slot(lp: Block, st: dict, x, cfg, pos: int):
         x = x + RWKV.channelmix_apply(lp.cm, h, st["cm_x"], cfg)
         st["cm_x"] = h[:, 0]
     else:
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg)[0]
     if cfg.family == "encdec":
         hx = _norm(cfg, lp.ln_x, x)
         x = x + L.cross_attention(lp.xattn, hx, (st["ck"], st["cv"]), cfg)
@@ -466,5 +564,5 @@ def forward_prefill(model, batch: dict):
     if cfg.family == "encdec":
         enc_out = _encode(model, batch)
         x = x + model.pos_embed[:s].to(x.dtype)[None]
-    x = _backbone(model, x, cfg, positions, enc_out)
+    x, _aux = _backbone(model, x, cfg, positions, "prefill", enc_out)
     return _logits(model, x[:, -1:], cfg)[:, 0]

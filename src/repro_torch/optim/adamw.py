@@ -1,0 +1,79 @@
+"""AdamW with a configurable state dtype: the port of
+`repro/optim/adamw.py`, plain functions on tensors.
+
+Parameters, gradients and the moments are dicts keyed by the model's
+parameter names (`dict(model.named_parameters())`).  The update is
+JAX's, step for step: one global-norm clip over every gradient in
+float32 (norm + 1e-12 under the root), a linear warmup of the learning
+rate, bias correction at the incremented step, weight decay decoupled
+from the moments and applied to the parameter in float32, the new
+parameter cast back to its own dtype, and m, v kept in `state_dtype`
+("float32", or "bfloat16" to halve optimizer memory).  It is not
+`torch.optim.AdamW`, whose clip, schedule and cast order differ.
+JAX's `zero1_spec` (optimizer state sharded over the data axis) waits
+for the port's meshes of the LM (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"     # "bfloat16" halves optimizer memory
+    warmup_steps: int = 100
+
+
+def init_state(params: dict, cfg: AdamWConfig) -> dict:
+    """Zero moments in cfg.state_dtype beside each parameter, and the
+    step, an int32 scalar on the parameters' device."""
+    dt = getattr(torch, cfg.state_dtype)
+    dev = next(iter(params.values())).device
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+    return {"m": {k: zeros(p) for k, p in params.items()},
+            "v": {k: zeros(p) for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at `step`: linear warmup to cfg.lr."""
+    warm = torch.clamp(step.float() / max(cfg.warmup_steps, 1), max=1.0)
+    return cfg.lr * warm
+
+
+@torch.no_grad()
+def apply_updates(params: dict, grads: dict, state: dict,
+                  cfg: AdamWConfig) -> tuple[dict, dict]:
+    """Returns (new_params, new_state): global-norm clip, then AdamW, on
+    new tensors (the inputs are left as they are)."""
+    step = state["step"] + 1
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads.values())
+                       + 1e-12)
+    scale = torch.clamp(cfg.grad_clip / gnorm, max=1.0)
+    lr = _schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - b1 ** step.float()
+    bc2 = 1 - b2 ** step.float()
+    sdt = getattr(torch, cfg.state_dtype)
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k].float() * scale
+        m32 = b1 * state["m"][k].float() + (1 - b1) * g
+        v32 = b2 * state["v"][k].float() + (1 - b2) * g * g
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        new_p[k] = (p.float() - lr * delta).to(p.dtype)
+        new_m[k], new_v[k] = m32.to(sdt), v32.to(sdt)
+    return new_p, {"m": new_m, "v": new_v, "step": step}

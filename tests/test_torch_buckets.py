@@ -33,6 +33,19 @@ from repro_torch.serving.faults import FaultInjector, FaultSpec
 from repro_torch.serving.modexp_service import ModArithService
 from repro_torch.utils import launch_stats as LS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its limb tensors are
+    a few dozen elements wide, and the test workers share the host's
+    cores (at torch's default of one thread per core they oversubscribe
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B = bi.BASE
 
 

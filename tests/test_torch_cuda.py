@@ -1212,3 +1212,102 @@ def test_lm_rwkv_full_decode_matches_prefill(dev):
             logits, cache = T.forward_decode(m, cache,
                                              {"token": toks[:, i]}, i)
         torch.testing.assert_close(logits.float(), full, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# LM training (repro_torch.train): no hand-written kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "jamba-1.5-large-398b"])
+def test_lm_train_step_on_card_matches_cpu(dev, arch):
+    """A train step, float32 weights on the CPU and a copy on the card,
+    the same batch: loss within rtol 1e-4, every gradient
+    within rtol 1e-3, atol 1e-5 x the leaf's max
+    (Jamba's bf16-stream leaves at atol 2^-8 x max, as
+    tests/test_torch_train_model.py holds them against JAX); the AdamW
+    update of the card's gradients on both devices (new parameters rtol
+    1e-5, atol 1e-5 lr; moments rtol 1e-5, atol 1e-5 x max; the step):
+    on the CPU's own gradients a parameter whose gradient element lies
+    near eps would move by up to ~lr more (chip_smoke.py
+    TRAIN_TOL_UPDATE); then a make_train_step step's loss on each.  No
+    kernel launched."""
+    import copy
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    cfg = C.get_config(arch).reduced()
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2)
+    cpu = T.init_params(cfg, 0, "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+             for k in ("tokens", "labels")}
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    build.reset_launch_counts()
+    stream = ("mamba.dt_bias", "mamba.a_log", "mamba.x_proj",
+              "mamba.dt_proj")
+
+    def close(got, want, name):
+        atol = (2 ** -8 if any(s in name for s in stream) else 1e-5) \
+            * want.abs().max().item()
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=1e-3, atol=atol, msg=name)
+
+    lc, _, gc = TS.make_grad_fn(cfg)(cpu, batch)
+    lg, _, gg = TS.make_grad_fn(cfg)(card, on_card)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=0)
+    for k in gc:
+        close(gg[k], gc[k], k)
+    card_g = {k: g.float() for k, g in gg.items()}
+    oc = TS.apply_grads(cpu, adamw.init_state(dict(cpu.named_parameters()),
+                                              ocfg),
+                        {k: g.cpu() for k, g in card_g.items()}, ocfg)
+    og = TS.apply_grads(card, adamw.init_state(
+        dict(card.named_parameters()), ocfg), card_g, ocfg)
+    assert int(og["step"]) == int(oc["step"]) == 1
+    for (k, p), q in zip(cpu.named_parameters(), card.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-5,
+                                   atol=1e-5 * ocfg.lr, msg=k)
+        for mom in ("m", "v"):
+            want = oc[mom][k]
+            torch.testing.assert_close(og[mom][k].cpu(), want, rtol=1e-5,
+                                       atol=1e-5 * want.abs().max().item(),
+                                       msg=f"{mom} {k}")
+    step = TS.make_train_step(cfg, ocfg)
+    _, _, mc = step(cpu, oc, batch)
+    _, _, mg = step(card, og, on_card)
+    torch.testing.assert_close(mg["loss"].cpu(), mc["loss"], rtol=1e-4,
+                               atol=0)
+    assert not any(build.launch_counts().values())
+
+
+def test_lm_checkpoint_round_trip_on_card(dev):
+    """A bf16 model and its AdamW state on the card saved (async) and
+    restored onto the card and onto the CPU, bit for bit."""
+    import dataclasses
+    import tempfile
+    from repro_torch import configs as C
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(C.get_config("smollm-135m").reduced(),
+                              param_dtype_str="bfloat16", dtype="bfloat16")
+    model = T.init_params(cfg, 0, dev)
+    params = dict(model.named_parameters())
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    for t in opt["m"].values():
+        t.normal_()
+    tree = {"params": params, "opt": opt}
+    with tempfile.TemporaryDirectory() as d:
+        ck = CK.AsyncCheckpointer(d)
+        ck.save_async(4, tree, {"next_step": 4})
+        ck.wait()
+        on_card, extra = CK.restore(d, device=dev)
+        on_cpu, _ = CK.restore(d)
+    assert extra == {"next_step": 4}
+    assert CK.digest(on_card) == CK.digest(on_cpu) == CK.digest(tree)
+    for k, p in params.items():
+        got = on_card["params"][k]
+        assert got.device.type == "cuda" and got.dtype == torch.bfloat16
+        assert torch.equal(got, p)

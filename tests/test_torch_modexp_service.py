@@ -16,6 +16,19 @@ from repro_torch.core import modarith as MA
 from repro_torch.serving import errors as E
 from repro_torch.serving.modexp_service import ModArithService
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its limb tensors are
+    a few dozen elements wide, and the test workers share the host's
+    cores (at torch's default of one thread per core they oversubscribe
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B = bi.BASE
 M = 4
 

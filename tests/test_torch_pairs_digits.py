@@ -28,6 +28,19 @@ from repro.kernels import bigmul as JBM
 from repro_torch.core import bigint as bi
 from repro_torch.kernels import bigmul
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its limb tensors are
+    a few dozen elements wide, and the test workers share the host's
+    cores (at torch's default of one thread per core they oversubscribe
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B = bi.BASE
 TC, TV = 128, 64                      # the small tiling
 WU, WV = 3 * TC + 5, 2 * TC + 3

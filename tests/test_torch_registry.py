@@ -31,6 +31,19 @@ from repro_torch.core import shinv as S
 from repro_torch.kernels import ops as K
 from repro_torch.obs import costmodel as CM
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this module runs: its limb tensors are
+    a few dozen elements wide, and the test workers share the host's
+    cores (at torch's default of one thread per core they oversubscribe
+    them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B = bi.BASE
 M_DIV = 8                 # divmod width (the JAX pallas run needs m <= 16)
 M_MOD = 4                 # modulus width
