@@ -171,7 +171,33 @@ Phases, each of which raises on failure:
      tokens/s, the device's busy share over 2 steps, peak memory and
      the bound from the shapes (`train_bound`); (e) as child processes
      started with (c), `python -m repro_torch.launch.train --arch
-     smollm-135m --reduced --steps 20` and the e2e training example.
+     smollm-135m --reduced --steps 20` and the e2e training example;
+ 11. LM distributed training (`repro_torch.train.ddp_shardmap`,
+     `.pipeline`, `.comm`; `repro_torch.launch.dryrun`), which launches
+     none of the six kernels (the counts stay 0): (c) first, as child
+     processes started together, the dry run of qwen2-0.5b decode_32k
+     on the multi-pod mesh and of smollm-135m train_4k on the single pod
+     (status ok, peak under the card's 80 GB, three roofline terms > 0)
+     and `python -m repro_torch.launch.train --arch smollm-135m
+     --reduced --deterministic` with --mesh and without (equal
+     sha256); then two ranks (`comm.backend_for`: NCCL on cards of
+     their own, gloo through pinned host memory on one card) on
+     smollm-135m at its published width and depth (bf16, remat): (a)
+     `make_ddp_train_step` at a global batch of 8 x 2,048 (4 x 2,048 a
+     rank) on the synthetic stream, DIST_STEPS steps with int8
+     error-feedback compression and as many without (every loss finite,
+     both curves falling over their first DIST_FALLING steps and over
+     the run, the last losses within DIST_TOL_LAST of each other), each
+     step timed with its collectives' ms and payload bytes; step 0's
+     int8 exchange within half a quantization step of the float32 mean
+     from the same gradients; and the uncompressed first two losses
+     against one process's `make_train_step` on the global batch
+     (within LM_TOL_BF16); (b)
+     the GPipe forward over 2 stages of 15 layers in 4 microbatches of
+     the same batch against the sequential layers on the same card
+     (JAX's 2e-2), both timed; (d) the dry run's one-card estimate of
+     phase 10's step (a 1 x 1 mesh, 8 x 2,048) beside phase 10's
+     measured step and `train_bound`.
 
 The services of phases 4, 5, 5b, 5c, 5d and 7 run through their bucket
 graphs; where a phase counts a service call's launches exactly, it
@@ -180,7 +206,7 @@ eager warm-up launches too.  Phases 7, 8 and 9 run after 5d, and 7's
 timing after 6b.
 
 The kernel launch counters are set to 0 just before each of phases 4,
-4b, 4c, 5, 5b, 5c, 5d, 7, 8, 9 and 10 and read just after it.  Details go to
+4b, 4c, 5, 5b, 5c, 5d, 7, 8, 9, 10 and 11 and read just after it.  Details go to
 chiprun_out/chip_smoke.json.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches, times and bounds.  Exits non-zero
@@ -251,7 +277,8 @@ PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
                                  "correct", "barrett"),
                 "dryrun": ("powdiff", "update", "correct"),
                 "lm_serve": (),
-                "lm_train": ()}
+                "lm_train": (),
+                "lm_dist": ()}
 # limbs at 2^15 and 2^18 bits, the sizes of the frontend and pair phases
 M15, M18 = 2 ** 15 // 16, 2 ** 18 // 16
 # the wide division's limbs, past the CUDA-core finalization's ~29,000
@@ -343,6 +370,24 @@ TRAIN_LR = 3e-3
 # step timed after TRAIN_WARMUP steps
 TRAIN_FULL = ("smollm-135m", 8, 2048)
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_WARMUP, TRAIN_TIMED = 10, 5, 2, 5
+# phase 11, LM distributed training: smollm-135m at its published width
+# and depth, a global batch x positions over DIST_RANKS ranks, DIST_STEPS
+# steps each way; the GPipe forward over DIST_RANKS stages in PIPE_MICRO
+# microbatches within JAX's tolerance (tests/test_pipeline.py); the
+# dry-run cells (arch, shape, mesh) run as child processes.  The last
+# losses with and without int8 error-feedback compression within JAX's
+# bound (tests/test_system.py:160: 0.25 after 12 steps); each curve falls
+# at each of its first DIST_FALLING steps and ends below its start (past
+# them both level off near 6.7 and may rise a step).  On the card the
+# compressed curve trails by up to 1.01 (step 4) and closes to -0.064 at
+# step 12 (NVIDIA H100 80GB HBM3, 700 W): 40% of the nonzero gradient
+# entries, 99.8% of the embedding's, quantize to 0 at step 0 and wait
+# in the error buffer
+DIST_FULL = ("smollm-135m", 8, 2048)
+DIST_RANKS, DIST_STEPS, DIST_FALLING, PIPE_MICRO = 2, 12, 5, 4
+DIST_TOL_LAST, PIPE_TOL = 0.25, 2e-2
+DIST_DRYRUN = (("qwen2-0.5b", "decode_32k", "multi"),
+               ("smollm-135m", "train_4k", "single"))
 
 
 def log(*a):
@@ -490,6 +535,137 @@ def ptxas_report(path: Path) -> dict:
     return out
 
 
+def dist_exchange_witness(model, cfg, batch) -> dict:
+    """Step 0's gradient exchange on this rank, both ways, from the same
+    local gradients: the int8 error-feedback mean (zero error buffers)
+    against the float32 mean, in quantization steps (amax over the ranks
+    / 127; rounding bounds it by 1/2), and the share of this rank's
+    nonzero entries that quantize to 0 and so wait in the error buffer,
+    over all leaves and for the largest ones."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train import comm
+    from repro_torch.train import ddp_shardmap as DDP
+    from repro_torch.train.step import make_grad_fn
+    _loss, _m, grads = make_grad_fn(cfg)(model, DDP._rows(batch, None))
+    n = comm.world(None)
+    worst, zeros, total, leaves = 0.0, 0, 0, {}
+    for k, g in grads.items():
+        g = g.float()
+        plain = comm.all_reduce(g.clone(), dist.ReduceOp.SUM) / n
+        quant, _err = DDP._quantized_psum(g, torch.zeros_like(g))
+        step = comm.all_reduce(g.abs().max(), dist.ReduceOp.MAX) / 127.0
+        worst = max(worst, ((quant - plain).abs().max() / step).item())
+        nz = g != 0
+        z, m = int((nz & (torch.round(g / step) == 0)).sum()), int(nz.sum())
+        zeros, total = zeros + z, total + m
+        leaves[k] = (g.numel(), z / max(m, 1))
+    big = sorted(leaves.items(), key=lambda kv: -kv[1][0])[:4]
+    return dict(worst_steps=worst, zero_share=zeros / total,
+                largest={k: share for k, (_n, share) in big})
+
+
+def dist_worker(rank: int, world: int, port: int, out: str, arch: str,
+                batch: int, seq: int, steps: int, n_micro: int, lr: float,
+                device: str = "cuda", reduced: bool = False) -> None:
+    """One rank of phase 11 (a process of its own): (a) DDP steps with
+    and without compression, (b) the GPipe forward and, on rank 0, the
+    sequential layers it is held against; writes out/rank<r>.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as C
+    from repro_torch.data.synthetic import DataConfig, SyntheticStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import comm
+    from repro_torch.train import pipeline as PL
+    from repro_torch.train.ddp_shardmap import (init_error_buffers,
+                                                make_ddp_train_step)
+    backend = comm.init_group(rank, world, port, device)
+    dev = comm.rank_device(device, rank, backend)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    cfg = C.get_config(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    ocfg = adamw.AdamWConfig(lr=lr, warmup_steps=2)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=batch))
+    res = {"backend": backend, "device": str(dev), "rank": rank}
+    model = T.init_params(cfg, 0, dev)
+    res["exchange"] = dist_exchange_witness(
+        model, cfg, {k: torch.from_numpy(v).to(dev, torch.long)
+                     for k, v in stream.batch(0).items()})
+    del model
+    for compress in (True, False):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = T.init_params(cfg, 0, dev)
+        opt = adamw.init_state(dict(model.named_parameters()), ocfg)
+        err = init_error_buffers(model)
+        step = make_ddp_train_step(cfg, ocfg, compress=compress)
+        rec = {k: [] for k in ("losses", "step_ms", "collective_ms",
+                               "bytes", "calls")}
+        for i in range(steps):
+            b = {k: torch.from_numpy(v).to(dev, torch.long)
+                 for k, v in stream.batch(i).items()}
+            st = (step.stats.seconds, step.stats.bytes, step.stats.calls)
+            sync()
+            t0 = time.perf_counter()
+            model, opt, err, loss = step(model, opt, err, b)
+            loss = float(loss)
+            sync()
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["losses"].append(loss)
+            rec["collective_ms"].append(1e3 * (step.stats.seconds - st[0]))
+            rec["bytes"].append(step.stats.bytes - st[1])
+            rec["calls"].append(step.stats.calls - st[2])
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
+            else None
+        res["compressed" if compress else "plain"] = rec
+        del model, opt, err
+        if cuda:
+            torch.cuda.empty_cache()
+    model = T.init_params(cfg, 0, dev)
+    tokens = torch.from_numpy(stream.batch(0)["tokens"]).to(dev, torch.long)
+    fwd = PL.make_pipelined_forward(cfg, None, n_micro)
+    with torch.no_grad():
+        x = T._embed_inputs(model, {"tokens": tokens}, cfg)
+        fwd(model, x)                             # warm-up
+        ms = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            h = fwd(model, x)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        pipe = {"pipeline_ms": ms, "layers_per_stage":
+                cfg.n_layers // world, "microbatches": n_micro}
+        if rank == 0:
+            pos = torch.arange(seq, device=dev)[None].expand(batch, seq)
+            PL._stage_apply(model.blocks, x, cfg, pos)  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            ref = PL._stage_apply(model.blocks, x, cfg, pos)
+            sync()
+            pipe["sequential_ms"] = 1e3 * (time.perf_counter() - t0)
+            d = (h.float() - ref.float()).abs()
+            pipe.update(max_abs_err=d.max().item(),
+                        ref_max=ref.float().abs().max().item(),
+                        within=bool(torch.allclose(h.float(), ref.float(),
+                                                   rtol=PIPE_TOL,
+                                                   atol=PIPE_TOL)),
+                        finite=bool(torch.isfinite(h).all()))
+    res["pipeline"] = pipe
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -591,7 +767,8 @@ class Smoke:
                          ("sharded_path", self.sharded_path),
                          ("dryrun", self.dryrun),
                          ("lm_serve", self.lm_serve),
-                         ("lm_train", self.lm_train)):
+                         ("lm_train", self.lm_train),
+                         ("lm_dist", self.lm_dist)):
             self.build.reset_launch_counts()
             self.phase(name, fn)
             got = self.build.launch_counts()
@@ -3266,6 +3443,238 @@ class Smoke:
         bound, by = self.RL.flop_bound(flops, nbytes)
         return dict(bound_flops=flops, bound_bytes=nbytes,
                     bound_ms=bound * 1e3, bound_by=by, cfg_n_params=n)
+
+    # -- phase 11: LM distributed training ---------------------------------
+
+    def lm_dist(self):
+        """The distributed LM path (module docstring, phase 11): the child
+        processes of (c) first, then the ranks of (a) and (b), then (a)'s
+        single-process check and (d)."""
+        import tempfile
+        rep = self.report["lm_dist"] = {"seconds": {}}
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            rep["cli"] = self.dist_children_check(self.dist_children(d))
+        rep["seconds"]["cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["ranks"] = self.dist_ranks()
+        rep["seconds"]["ranks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["single"] = self.dist_single(rep["ranks"])
+        rep["seconds"]["single"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["estimate"] = self.dist_estimate()
+        rep["seconds"]["estimate"] = time.perf_counter() - t0
+        log(f"lm_dist seconds: {json.dumps(rep['seconds'])}")
+
+    def dist_children(self, tmp):
+        """Start, together: the dry run of each DIST_DRYRUN cell into tmp,
+        and the reduced training CLI (--deterministic) with and without
+        --mesh.  Returns {name: (argv, expected text, Popen)}."""
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        runs = {}
+        for arch, shape, mesh in DIST_DRYRUN:
+            runs[f"dryrun_{arch}_{shape}"] = (
+                ["repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh, "--out", tmp], "1 ok, 0 skipped")
+        train = ["repro_torch.launch.train", "--arch", "smollm-135m",
+                 "--reduced", "--steps", "10", "--deterministic"]
+        runs["train_mesh"] = (train + ["--mesh"], "params sha256")
+        runs["train"] = (train, "params sha256")
+        procs = {name: (argv, want, subprocess.Popen(
+            [sys.executable, "-m", *argv], env=env, cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+            for name, (argv, want) in runs.items()}
+        return procs, tmp
+
+    def dist_children_check(self, started):
+        """Wait for `dist_children`: each exits 0; each dry-run record is
+        ok with its peak under 80 GB and three roofline terms > 0; --mesh
+        leaves the sha256 as it is."""
+        procs, tmp = started
+        t0 = time.perf_counter()
+        out, failed = {}, []
+        for name, (argv, want, p) in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            lines = stdout.strip().splitlines()
+            out[name] = dict(seconds=time.perf_counter() - t0,
+                             rc=p.returncode, stdout=lines[-2:])
+            if p.returncode != 0 or want not in stdout:
+                failed.append(f"{' '.join(argv)}: rc {p.returncode}\n"
+                              f"{stdout[-2000:]}\n{stderr[-2000:]}")
+            digest = [x for x in lines if x.startswith("params sha256")]
+            out[name]["digest"] = digest[0].split()[2] if digest else None
+        if failed:
+            raise AssertionError("\n".join(failed))
+        for arch, shape, mesh in DIST_DRYRUN:
+            path = Path(tmp) / f"{arch}__{shape}__{mesh}.json"
+            rec = json.loads(path.read_text())
+            rl, mem = rec["roofline"], rec["memory"]
+            keep = {k: rl[k] for k in ("compute_s", "memory_s",
+                                       "collective_s", "dot_flops", "bytes",
+                                       "wire_bytes", "bottleneck",
+                                       "per_kind")}
+            keep.update(peak_bytes_est=mem["peak_bytes_est"],
+                        argument_bytes=mem["argument_bytes"],
+                        useful_ratio=rec["useful_ratio"],
+                        trip_counts=rec["trip_counts"],
+                        walk_s=rec["walk_s"], status=rec["status"])
+            out[f"dryrun_{arch}_{shape}"]["record"] = keep
+            log(f"dry run {arch} {shape} {mesh}: {json.dumps(keep)}")
+            if rec["status"] != "ok" or mem["peak_bytes_est"] >= 80e9 \
+                    or min(rl["compute_s"], rl["memory_s"],
+                           rl["collective_s"]) <= 0:
+                raise AssertionError(f"dry run {arch} {shape} {mesh}: {rec}")
+        if out["train_mesh"]["digest"] != out["train"]["digest"]:
+            raise AssertionError(
+                "--mesh changed the trained parameters: "
+                f"{out['train_mesh']['digest']} != {out['train']['digest']}")
+        log("launch.train --mesh on the card: final parameters equal bit "
+            f"for bit ({out['train']['digest'][:16]}...)")
+        return out
+
+    def dist_ranks(self):
+        """(a) and (b) on DIST_RANKS spawned ranks; the losses and the
+        pipeline checked, the step, collective and pipeline times."""
+        import socket
+        import tempfile
+        torch = self.torch
+        torch.cuda.empty_cache()
+        arch, b, s = DIST_FULL
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        with tempfile.TemporaryDirectory() as d:
+            procs = [ctx.Process(target=dist_worker, args=(
+                r, DIST_RANKS, port, d, arch, b, s, DIST_STEPS, PIPE_MICRO,
+                TRAIN_LR)) for r in range(DIST_RANKS)]
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(timeout=600)
+            if any(p.exitcode != 0 for p in procs):
+                for p in procs:
+                    p.kill()
+                raise AssertionError("the ranks exited with "
+                                     f"{[p.exitcode for p in procs]}")
+            ranks = [json.loads((Path(d) / f"rank{r}.json").read_text())
+                     for r in range(DIST_RANKS)]
+        r0 = ranks[0]
+        log(f"lm_dist ranks: {json.dumps(ranks)}")
+        for way in ("compressed", "plain"):
+            ls = [r[way]["losses"] for r in ranks]
+            if any(x != ls[0] for x in ls):
+                raise AssertionError(f"{way}: the ranks' losses differ {ls}")
+            head = ls[0][:DIST_FALLING + 1]
+            if not all(map(math.isfinite, ls[0])) or \
+                    not all(b < a for a, b in zip(head, head[1:])) or \
+                    not ls[0][-1] < ls[0][0]:
+                raise AssertionError(f"{way}: losses {ls[0]}")
+        gaps = [c - u for c, u in zip(r0["compressed"]["losses"],
+                                      r0["plain"]["losses"])]
+        last = abs(gaps[-1])
+        if not last < DIST_TOL_LAST:
+            raise AssertionError(f"the last losses differ by {last} "
+                                 f"(gaps {gaps})")
+        ex = [r["exchange"] for r in ranks]
+        if not max(e["worst_steps"] for e in ex) <= 0.5 * (1 + 1e-5):
+            raise AssertionError(f"int8 exchange against the float32 mean "
+                                 f"past half a quantization step: {ex}")
+        pipe = r0["pipeline"]
+        if not (pipe["within"] and pipe["finite"]):
+            raise AssertionError(f"pipelined forward against the "
+                                 f"sequential layers: {pipe}")
+        summary = dict(backend=r0["backend"], devices=[r["device"]
+                                                       for r in ranks],
+                       last_loss_diff=last, gaps=gaps, exchange=ex,
+                       card=card_line())
+        for way in ("compressed", "plain"):
+            w = r0[way]
+            steady = slice(1, None)              # the first step warms up
+            summary[way] = dict(
+                losses=w["losses"],
+                step_ms=statistics.median(w["step_ms"][steady]),
+                collective_ms=statistics.median(w["collective_ms"][steady]),
+                bytes_per_step=w["bytes"][-1], calls_per_step=w["calls"][-1],
+                tokens_s=b * s / statistics.median(w["step_ms"][steady])
+                * 1e3, peak_bytes=max(r[way]["peak_bytes"] for r in ranks))
+        summary["pipeline"] = dict(
+            pipeline_ms=statistics.median(pipe["pipeline_ms"]),
+            sequential_ms=pipe["sequential_ms"],
+            max_abs_err=pipe["max_abs_err"], ref_max=pipe["ref_max"],
+            stages=DIST_RANKS, layers_per_stage=pipe["layers_per_stage"],
+            microbatches=PIPE_MICRO)
+        log(f"lm_dist {arch} over {DIST_RANKS} ranks ({r0['backend']}, "
+            f"{summary['devices']}), batch {b} x {s}: {json.dumps(summary)}")
+        return summary
+
+    def dist_single(self, ranks):
+        """(a)'s check: the uncompressed first two losses against one
+        process's `make_train_step` on the global batch, on the card."""
+        torch = self.torch
+        from repro_torch import configs as C
+        from repro_torch.data.synthetic import DataConfig, SyntheticStream
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw
+        from repro_torch.train.step import make_train_step
+        arch, b, s = DIST_FULL
+        cfg = C.get_config(arch)
+        ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
+        model = T.init_params(cfg, 0, self.dev)
+        stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                            global_batch=b))
+        step = make_train_step(cfg, ocfg)
+        opt = adamw.init_state(dict(model.named_parameters()), ocfg)
+        want = []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(self.dev, torch.long)
+                     for k, v in stream.batch(i).items()}
+            model, opt, metrics = step(model, opt, batch)
+            want.append(float(metrics["loss"]))
+        got = ranks["plain"]["losses"][:2]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        log(f"lm_dist: uncompressed DDP losses {got} against one "
+            f"process's {want} (relative {rel}, limit {LM_TOL_BF16})")
+        if not max(rel) <= LM_TOL_BF16:
+            raise AssertionError(f"DDP losses {got} against {want}")
+        del model, opt
+        torch.cuda.empty_cache()
+        return dict(ddp_losses=got, single_losses=want, rel=rel)
+
+    def dist_estimate(self):
+        """(d): the dry run's one-card estimate of phase 10's step (a 1 x 1
+        mesh, batch 8 x 2,048) beside phase 10's measured step and
+        `train_bound`: a cross-check of the walk's products, not a
+        gate."""
+        from repro_torch.configs import ShapeCell
+        from repro_torch.launch import dryrun as D
+        from repro_torch.launch.mesh import abstract_mesh
+        arch, b, s = TRAIN_FULL
+        shape = ShapeCell(f"train_{b}x{s}", s, b, "train")
+        rec = D.lower_cell(arch, shape.name, False, shape=shape,
+                           mesh=abstract_mesh((1, 1), ("data", "model")))
+        rl = rec["roofline"]
+        full = self.report["lm_train"]["full"]
+        est = dict(dot_flops=rl["dot_flops"], bytes=rl["bytes"],
+                   compute_ms=rl["compute_s"] * 1e3,
+                   memory_ms=rl["memory_s"] * 1e3,
+                   estimate_ms=max(rl["compute_s"], rl["memory_s"]) * 1e3,
+                   temp_bytes=rec["memory"]["temp_bytes"],
+                   peak_bytes_est=rec["memory"]["peak_bytes_est"],
+                   walk_s=rec["walk_s"],
+                   phase10_step_ms=full["step_ms"],
+                   phase10_peak_bytes=full["peak_bytes"],
+                   train_bound_ms=full["bound_ms"],
+                   train_bound_flops=full["bound_flops"],
+                   flops_vs_bound=rl["dot_flops"] / full["bound_flops"])
+        log(f"lm_dist: the dry run's one-card estimate of phase 10's step: "
+            f"{json.dumps(est)}")
+        return est
 
     def kernel_line(self, launches):
         """One entry per kernel.  The times and the bound are sums over

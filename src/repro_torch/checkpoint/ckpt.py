@@ -17,7 +17,11 @@ bfloat16, so a bfloat16 leaf is stored as its bits (int16) under its
 dtype name, and restore views the bits back: bit-exact.
 
 Restore never assumes the saving device: leaves are read on the host
-and moved to `device` (the CPU when None).  Writes are all-or-nothing:
+and moved to `device` (the CPU when None).  Elastic restore
+(`shardings=`, a tree of specs beside a `launch/mesh.py:DeviceMesh` and
+a shard `rank`) gives each leaf as that shard's slice of the saved
+array, JAX's `restore(shardings=)` onto a new layout: the saving layout
+need not be the restoring one.  Writes are all-or-nothing:
 a crash mid-save leaves only a .tmp directory, which `latest_step`
 ignores and removes; the previous complete step wins.
 """
@@ -153,10 +157,34 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: Optional[int] = None,
-            device=None) -> tuple[dict, dict]:
+def _shard(a: np.ndarray, spec, mesh, rank: int) -> np.ndarray:
+    """Shard `rank`'s slice of `a` under `spec` on `mesh`."""
+    from repro_torch.models.sharding import shard_index
+    index = []
+    for n, (i, k) in zip(a.shape, shard_index(spec, mesh, rank)):
+        if n % k:
+            raise ValueError(f"dim {n} does not split {k} ways ({spec})")
+        index.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return a[tuple(index)]
+
+
+def _spec_at(shardings, names):
+    node = shardings
+    for k in names:
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def restore(ckpt_dir: str, step: Optional[int] = None, device=None,
+            shardings=None, mesh=None, rank: int = 0) -> tuple[dict, dict]:
     """Load (tree, extra), the leaves as tensors on `device` (the CPU
-    when None): the restore onto another device than the saving one."""
+    when None): the restore onto another device than the saving one.
+    With `shardings` (a tree of specs shaped like the saved tree; a leaf
+    it lacks, or None, comes back whole) on `mesh`, each leaf is shard
+    `rank`'s slice of the saved array, on `device` or else the mesh's
+    device of that shard: the elastic restore."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -169,8 +197,13 @@ def restore(ckpt_dir: str, step: Optional[int] = None,
     for i in range(0, n, ss):
         with np.load(os.path.join(path, f"shard_{i // ss}.npz")) as z:
             host.extend(z[f"a{j}"] for j in range(len(z.files)))
+    if shardings is not None and device is None:
+        device = mesh.devices[rank]
     tree: dict = {}
     for names, a, dt in zip(manifest["names"], host, manifest["dtypes"]):
+        spec = None if shardings is None else _spec_at(shardings, names)
+        if spec:
+            a = _shard(a, spec, mesh, rank)
         node = tree
         for k in names[:-1]:
             node = node.setdefault(k, {})

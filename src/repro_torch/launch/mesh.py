@@ -13,6 +13,14 @@ the port's counterpart of XLA's forced host device count, and the way
 a one-card machine runs the split, replicate and gather path that a
 mesh of several cards runs.
 
+The LM's layout (`models/sharding.py`, `launch/specs.py`) reads a
+mesh's axis sizes (`sizes`, JAX's `mesh.shape`).  `abstract_mesh`
+gives a layout with no devices behind it (its shards name the meta
+device): the LM dry run's production mesh of 256 or 512 shards,
+JAX's `AbstractMesh`.  Shards are numbered row-major over the axes,
+HOST_CARDS to a host, and `crosses_hosts` says whether a collective
+over some axes leaves one host.
+
 Functions build meshes on demand; importing this module touches no
 device.
 """
@@ -30,6 +38,8 @@ PRODUCTION_SHAPE = (16, 16)
 PRODUCTION_AXES = ("data", "model")
 MULTI_POD_SHAPE = (2, 16, 16)
 MULTI_POD_AXES = ("pod", "data", "model")
+# cards joined by NVLink in one host (an HGX H100 board)
+HOST_CARDS = 8
 
 
 @dataclass(frozen=True)
@@ -61,6 +71,47 @@ class DeviceMesh:
     def distinct(self) -> tuple:
         """The distinct devices, in order of their first shard."""
         return tuple(dict.fromkeys(self.devices))
+
+    @property
+    def sizes(self) -> dict:
+        """{axis name: size}: JAX's `mesh.shape`."""
+        return dict(zip(self.axis_names, self.shape))
+
+
+def abstract_mesh(shape, axis_names) -> DeviceMesh:
+    """A layout of prod(shape) shards with no device behind them (each
+    names the meta device): what the LM dry run shards for."""
+    return DeviceMesh((torch.device("meta"),) * math.prod(shape),
+                      tuple(shape), tuple(axis_names))
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The production layout (`make_production_mesh`) as an abstract
+    mesh."""
+    shape, axes, _ = make_production_mesh(multi_pod=multi_pod)
+    return abstract_mesh(shape, axes)
+
+
+def group_members(mesh: DeviceMesh, axes) -> list[int]:
+    """The shards of the group over `axes` (a name or a tuple of names)
+    that holds shard 0, in row-major shard numbers."""
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    strides = {}
+    step = 1
+    for name, size in reversed(list(mesh.sizes.items())):
+        strides[name] = step
+        step *= size
+    members = [0]
+    for a in axes:
+        members = [m + i * strides[a] for m in members
+                   for i in range(mesh.sizes[a])]
+    return sorted(members)
+
+
+def crosses_hosts(mesh: DeviceMesh, axes) -> bool:
+    """Whether a group over `axes` spans more than one host of
+    HOST_CARDS cards (shards numbered row-major, hosts in order)."""
+    return len({m // HOST_CARDS for m in group_members(mesh, axes)}) > 1
 
 
 def mesh_of(devices) -> DeviceMesh:

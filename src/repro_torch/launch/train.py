@@ -12,8 +12,11 @@ latest checkpoint and goes on); --deterministic turns on PyTorch's
 deterministic algorithms (on the card the embedding's backward
 accumulates in a nondeterministic order otherwise), so that two runs
 end with the same bits.  It prints the final parameters' sha256.
-JAX's --mesh (a host-device mesh) waits for the port's meshes of the
-LM (ROADMAP queue 1).
+--mesh runs the trainer under a mesh over the process's devices
+(`models/sharding.py:use_mesh`), JAX's host-device mesh: on the CPU
+`make_host_mesh(1)`, on the card `make_device_mesh()`.  The port runs
+one device a process, so a mesh of more than one device raises; the
+multi-process path is `train/ddp_shardmap.py`, one process a rank.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import ckpt as CK
 from repro_torch.data.synthetic import DataConfig
+from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+from repro_torch.models.sharding import use_mesh
 from repro_torch.optim import adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -52,10 +57,22 @@ def main(argv=None) -> None:
                     help="deterministic algorithms (bit-reproducible)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run under a mesh over the process's devices")
     args = ap.parse_args(argv)
     args.device = torch.device(args.device)
     if args.device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu")
+    mesh = None
+    if args.mesh:
+        mesh = make_host_mesh(1) if args.device.type == "cpu" \
+            else make_device_mesh()
+        if mesh.size > 1:
+            ap.error(f"--mesh over {mesh.size} devices in one process: "
+                     "the port trains on one device a process; train "
+                     "over several with repro_torch/train/ddp_shardmap.py, "
+                     "one process a rank")
+        args.device = mesh.devices[0]
     if args.deterministic:
         # cuBLAS reads this when it makes its first handle
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -79,8 +96,10 @@ def main(argv=None) -> None:
         tc = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
                            ckpt_dir=args.ckpt_dir or tmp,
                            microbatches=args.microbatches)
-        tr = Trainer(cfg, oc, tc, dc, fault_hook=fault, device=args.device)
-        state = tr.run()
+        with use_mesh(mesh):
+            tr = Trainer(cfg, oc, tc, dc, fault_hook=fault,
+                         device=args.device)
+            state = tr.run()
     print(f"final loss {state.losses[-1]:.4f} "
           f"(start {state.losses[0]:.4f}); restarts={state.restarts}; "
           f"stragglers={len(state.straggler_events)}")

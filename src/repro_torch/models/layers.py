@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .sharding import constrain
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -194,6 +196,9 @@ def _project_qkv(p, x, cfg, positions):
     elif cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "data", None, "model", None, role="q")
+    k = constrain(k, "data", None, "model", None, role="k")
+    v = constrain(v, "data", None, "model", None, role="v")
     return q, k, v
 
 
@@ -350,8 +355,11 @@ def activation(h, g, act: str):
 
 
 def mlp(p, x, cfg):
-    g = dense(x, p.wg) if cfg.act == "swiglu" else None
-    return dense(activation(dense(x, p.wi), g, cfg.act), p.wo)
+    h = constrain(dense(x, p.wi), "data", None, "model", role="mlp_in")
+    g = constrain(dense(x, p.wg), "data", None, "model",
+                  role="mlp_gate") if cfg.act == "swiglu" else None
+    return constrain(dense(activation(h, g, cfg.act), p.wo),
+                     "data", None, None, role="mlp_out")
 
 
 def softmax_cross_entropy(logits: torch.Tensor,

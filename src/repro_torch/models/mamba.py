@@ -28,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.utils.loops import steps
 from .layers import dense, linear, normal_init, param
+from .sharding import constrain
 
 D_CONV = 4       # causal conv kernel width
 D_STATE = 16     # SSM state dim per channel
@@ -154,6 +156,7 @@ def mamba_apply(p, x, cfg, mode: str = "train", state=None):
     di, D_STATE)}.  Returns (y, new state; None in train mode)."""
     b, s, d = x.shape
     xi, z = dense(x, p.in_proj).chunk(2, -1)
+    xi = constrain(xi, "data", None, "model", role="mamba_inner")
 
     if mode == "decode":
         conv_win = torch.cat([state["conv"], xi], 1)
@@ -184,7 +187,7 @@ def mamba_apply(p, x, cfg, mode: str = "train", state=None):
     hstate = torch.zeros((b, xc.shape[-1], D_STATE), dtype=torch.float32,
                          device=x.device)
     ys = []
-    for t in range(s):
+    for t in steps(s, "mamba_scan"):
         dtf = dt16[:, t].float()
         da_t = torch.exp(dtf[..., None] * a)                 # (B,di,N)
         dbx_t = (dtf * xc16[:, t].float())[..., None] \
@@ -192,7 +195,9 @@ def mamba_apply(p, x, cfg, mode: str = "train", state=None):
         hstate = hstate * da_t + dbx_t
         ys.append(torch.einsum("bdn,bn->bd", hstate,
                                cm16[:, t].float()).to(torch.bfloat16))
-    y = torch.stack(ys, 1).float()                           # (B,S,di)
+    # (B,S,di); under a cost walk that collapses the scan, (B,1,di)
+    # stands for it in shape (broadcast below)
+    y = torch.stack(ys, 1).float()
     y = y + xc * p.d_skip.float()
     y = y * F.silu(z.float())
     return dense(y.to(x.dtype), p.out_proj), None

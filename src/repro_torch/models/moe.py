@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import activation, dense_init, param
+from .sharding import constrain
 
 
 class MoE(nn.Module):
@@ -105,7 +106,10 @@ def moe_apply(p, x, cfg):
     # has one writer, so the copy is deterministic where it is read
     disp = torch.zeros((e * r.cap + 1, d), dtype=x.dtype, device=x.device)
     disp.index_copy_(0, r.slot, xt.repeat_interleave(k, dim=0))
-    out_e = expert_mlp(p, disp[:e * r.cap].reshape(e, r.cap, d), cfg)
+    disp = constrain(disp[:e * r.cap].reshape(e, r.cap, d), "model", None,
+                     None, role="moe_dispatch")
+    out_e = constrain(expert_mlp(p, disp, cfg), "model", None, None,
+                      role="moe_out")
     # combine
     flat_out = torch.cat([out_e.reshape(e * r.cap, d),
                           torch.zeros((1, d), dtype=x.dtype,
@@ -116,5 +120,8 @@ def moe_apply(p, x, cfg):
     # load-balance aux loss (Switch-style)
     frac_tokens = F.one_hot(r.experts, e).sum(1).float().mean(0)
     aux = e * (frac_tokens * r.probs.mean(0)).sum()
-    p.routing = r
+    # kept without its autograd graph: a graph held by the module would
+    # keep a recomputed (remat) layer's saved activations alive after
+    # the backward pass
+    p.routing = r._replace(probs=r.probs.detach(), gates=r.gates.detach())
     return out.reshape(b, s, d), aux

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import dense, linear, normal_init, param
+from .sharding import constrain
 
 LORA_R = 32      # low-rank dims for the data-dependent pieces
 DECAY_R = 64
@@ -181,12 +182,14 @@ def timemix_apply(p, x, x_prev_token, cfg, mode: str = "chunked",
     var = ((outf - mu) ** 2).mean(-1, keepdim=True)
     outf = (outf - mu) * torch.rsqrt(var + 1e-5)
     outf = outf.reshape(b, -1, d) * p.ln_x.float()
-    return dense(outf.to(x.dtype) * g, p.wo), new_state
+    y = dense(outf.to(x.dtype) * g, p.wo)
+    return constrain(y, "data", None, None, role="timemix_out"), new_state
 
 
 def channelmix_apply(p, x, x_prev_token, cfg):
     x_prev = _shifted(x, x_prev_token)
     xk = x + (x_prev - x) * p.mu_k.to(x.dtype)
     xr = x + (x_prev - x) * p.mu_r.to(x.dtype)
-    kk = F.relu(dense(xk, p.wk)).square()
+    kk = constrain(F.relu(dense(xk, p.wk)).square(), "data", None, "model",
+                   role="channelmix_hidden")
     return torch.sigmoid(dense(xr, p.wr)) * dense(kk, p.wv)

@@ -65,6 +65,7 @@ from . import layers as L
 from . import mamba as MAMBA
 from . import moe as MOE
 from . import rwkv as RWKV
+from .sharding import constrain
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 CE_CHUNK = 512
@@ -259,6 +260,22 @@ def jax_name(path: str) -> tuple[str, bool]:
     return path, False
 
 
+def jax_leaf(name: str) -> tuple[str, bool]:
+    """The inverse of `jax_name`: the JAX leaf ("."-joined path within
+    one layer) of the port's parameter `name` within one layer, and
+    whether the port's array is its transpose."""
+    parts = name.split(".")
+    if parts[0] in ("attn", "xattn", "mlp"):
+        if parts[2] == "bias":
+            return f"{parts[0]}.b{parts[1][1:]}", False
+        return f"{parts[0]}.{parts[1]}", True
+    if parts[1] in _LINEARS.get(parts[0], ()):
+        return f"{parts[0]}.{parts[1]}", True
+    if parts[0] == "moe" and parts[1] != "router":
+        return f"moe.experts.{parts[1]}", False
+    return name, False
+
+
 def state_from_jax(cfg, tree: dict) -> dict:
     """The port's state dict, as numpy arrays, of a JAX pytree shaped like
     `init_params`' (parameters, or their gradients): the leading repeat
@@ -353,8 +370,10 @@ def _apply_slot(lp: Block, x, cfg, positions, mode: str, enc_out=None):
 
 def _embed_inputs(model, batch, cfg):
     if cfg.embed_stub and "embeds" in batch:
-        return batch["embeds"].to(cfg.compute_dtype)
-    return model.embed[batch["tokens"]].to(cfg.compute_dtype)
+        x = batch["embeds"].to(cfg.compute_dtype)
+    else:
+        x = model.embed[batch["tokens"]].to(cfg.compute_dtype)
+    return constrain(x, "data", None, None, role="embed")
 
 
 def _remat(on: bool, fn, *args):
@@ -389,14 +408,21 @@ def _encode(model, batch, cfg=None, train: bool = False):
 def _backbone(model, x, cfg, positions, mode: str, enc_out=None):
     """Every layer in order (in train mode each recomputed in the
     backward pass where cfg.remat), then the final norm; returns (x, the
-    layers' aux summed in float32)."""
+    layers' aux summed in float32).  Under cfg.seq_parallel the residual
+    stream is constrained sequence-sharded on "model" before the first
+    layer and after each repeat unit (JAX's scan boundary)."""
     aux = x.new_zeros((), dtype=torch.float32)
     remat = mode == "train" and cfg.remat
-    for lp in model.blocks:
+    plen = len(block_pattern(cfg))
+    if cfg.seq_parallel:
+        x = constrain(x, "data", "model", None, role="residual")
+    for i, lp in enumerate(model.blocks):
         x, a = _remat(remat, _apply_slot, lp, x, cfg, positions, mode,
                       enc_out)
         if a is not None:
             aux = aux + a
+        if cfg.seq_parallel and (i + 1) % plen == 0:
+            x = constrain(x, "data", "model", None, role="residual")
     return _norm(cfg, model.final_ln, x), aux
 
 

@@ -1,2 +1,2 @@
-"""Optimizers: `adamw` (AdamW with a global-norm clip, linear warmup
-and a configurable state dtype)."""
+"""Optimizers: `adamw` (AdamW with a global-norm clip, linear warmup,
+a configurable state dtype and its ZeRO-1 layout)."""

@@ -10,8 +10,9 @@ from the moments and applied to the parameter in float32, the new
 parameter cast back to its own dtype, and m, v kept in `state_dtype`
 ("float32", or "bfloat16" to halve optimizer memory).  It is not
 `torch.optim.AdamW`, whose clip, schedule and cast order differ.
-JAX's `zero1_spec` (optimizer state sharded over the data axis) waits
-for the port's meshes of the LM (ROADMAP queue 1).
+`zero1_spec` is JAX's ZeRO-1 layout: the optimizer state sharded over
+the data axis on top of the parameter's spec (`launch/specs.py` runs it
+for every leaf).
 """
 
 from __future__ import annotations
@@ -77,3 +78,23 @@ def apply_updates(params: dict, grads: dict, state: dict,
         new_p[k] = (p.float() - lr * delta).to(p.dtype)
         new_m[k], new_v[k] = m32.to(sdt), v32.to(sdt)
     return new_p, {"m": new_m, "v": new_v, "step": step}
+
+
+def zero1_spec(param_spec: tuple, shape, mesh) -> tuple:
+    """ZeRO-1: shard optimizer state over "data" on the first dimension
+    that is unsharded and divisible by the data-axis size."""
+    if mesh is None or "data" not in mesh.axis_names:
+        return tuple(param_spec)
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+
+    def uses_data(e):
+        return e == "data" or (isinstance(e, tuple) and "data" in e)
+
+    if any(uses_data(e) for e in entries):
+        return tuple(param_spec)             # FSDP already shards on data
+    dsize = mesh.sizes["data"]
+    for i, (e, n) in enumerate(zip(entries, shape)):
+        if e is None and n % dsize == 0 and n >= dsize:
+            entries[i] = "data"
+            break
+    return tuple(entries)

@@ -7,17 +7,23 @@ model's device, and returns (model, new optimizer state, metrics).  It
 runs eager: JAX jits its step.  With microbatches > 1 it splits the
 batch into equal parts along its first axis, accumulates their
 gradients in `grad_accum_dtype`, divides by the count and reports the
-mean loss as {"ce": loss, "aux": 0}, as JAX's scan does.  JAX's
-`param_shardings` (the accumulator pinned to the parameters' layout)
-waits for the port's meshes of the LM (ROADMAP queue 1).
+mean loss as {"ce": loss, "aux": 0}, as JAX's scan does
+(`make_accum_grad_fn`, which the dry run walks).  With
+`param_shardings` ({name: spec}, `launch/specs.py:param_shardings`)
+each microbatch's accumulated gradient is pinned to its parameter's
+spec (`models/sharding.py:with_sharding_constraint`), JAX's pin: the
+identity on the tensors, billed by the dry run as the gradient's
+reduction into the parameter's layout.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from repro_torch.utils.loops import steps
 
 
 def make_loss_fn(cfg):
@@ -71,28 +77,61 @@ def apply_grads(model, opt_state: dict, grads: dict,
     return new_opt
 
 
-def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, microbatches: int = 1,
-                    grad_accum_dtype=torch.float32):
-    """Returns train_step(model, opt_state, batch) -> (model, opt_state,
-    metrics {"ce", "aux", "loss"}): `make_grad_fn`'s gradients in float32,
-    then `apply_grads`.  grad_accum_dtype=torch.bfloat16 halves the
-    accumulator's memory (few microbatches)."""
+def make_accum_grad_fn(cfg, microbatches: int = 1, param_shardings=None,
+                       grad_accum_dtype=torch.float32):
+    """accum(model, batch) -> (loss, metrics, grads): `make_grad_fn`'s on
+    the whole batch, the gradients in float32; with microbatches > 1,
+    their mean over equal microbatches, accumulated in grad_accum_dtype
+    from zeros (JAX's scan), with metrics {"ce": the mean loss, "aux":
+    0}.  param_shardings ({name: spec}) pins the accumulator to the
+    parameters' specs, leaf by leaf: each microbatch's sum (role
+    "grad:<name>"), as JAX pins its carry, and the zeros and the final
+    mean ("grad_layout:<name>"; JAX pins the zeros, and the mean keeps
+    the carry's layout).
+    The microbatch loop is a `utils/loops.py:steps` loop: the dry run's
+    cost walk runs one microbatch and counts it `microbatches` times."""
     grad_fn = make_grad_fn(cfg)
 
-    def train_step(model, opt_state, batch):
+    def pin(role, k, a):
+        if param_shardings is None:
+            return a
+        return S.with_sharding_constraint(a, param_shardings[k],
+                                          role=f"{role}:{k}")
+
+    def accum(model, batch):
         if microbatches == 1:
             loss, metrics, grads = grad_fn(model, batch)
-            grads = {k: g.float() for k, g in grads.items()}
-        else:
-            acc, ltot = None, None
-            for mb in _split(batch, microbatches):
-                loss_i, _m, g = grad_fn(model, mb)
-                g = {k: gi.to(grad_accum_dtype) for k, gi in g.items()}
-                acc = g if acc is None else {k: acc[k] + g[k] for k in acc}
-                ltot = loss_i if ltot is None else ltot + loss_i
-            grads = {k: a.float() / microbatches for k, a in acc.items()}
-            loss = ltot / microbatches
-            metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+            return loss, metrics, {k: g.float() for k, g in grads.items()}
+        mbs = _split(batch, microbatches)
+        acc = {k: pin("grad_layout", k, torch.zeros(
+            p.shape, dtype=grad_accum_dtype, device=p.device))
+            for k, p in model.named_parameters()}
+        ltot = None
+        for i in steps(microbatches, "microbatches"):
+            loss_i, _m, g = grad_fn(model, mbs[i])
+            acc = {k: pin("grad", k, acc[k] + g[k].to(grad_accum_dtype))
+                   for k in acc}
+            ltot = loss_i if ltot is None else ltot + loss_i
+        loss = ltot / microbatches
+        return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, \
+            {k: pin("grad_layout", k, a.float() / microbatches)
+             for k, a in acc.items()}
+
+    return accum
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, microbatches: int = 1,
+                    param_shardings=None, grad_accum_dtype=torch.float32):
+    """Returns train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics {"ce", "aux", "loss"}): `make_accum_grad_fn`'s gradients,
+    then `apply_grads`.  param_shardings pins the microbatch gradient
+    accumulator to the parameters' specs; grad_accum_dtype=torch.bfloat16
+    halves the accumulator's memory (few microbatches)."""
+    accum = make_accum_grad_fn(cfg, microbatches, param_shardings,
+                               grad_accum_dtype)
+
+    def train_step(model, opt_state, batch):
+        loss, metrics, grads = accum(model, batch)
         new_opt = apply_grads(model, opt_state, grads, opt_cfg)
         metrics = dict(metrics)
         metrics["loss"] = loss

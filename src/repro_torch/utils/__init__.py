@@ -1,1 +1,2 @@
-"""Static profiles of the port's functions."""
+"""Static profiles of the port's functions (`launch_stats`) and the cost
+walk of one run (`op_costs`)."""

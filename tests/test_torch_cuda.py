@@ -1311,3 +1311,134 @@ def test_lm_checkpoint_round_trip_on_card(dev):
         got = on_card["params"][k]
         assert got.device.type == "cuda" and got.dtype == torch.bfloat16
         assert torch.equal(got, p)
+
+
+CARD_DIST = r"""
+import sys
+from dataclasses import replace
+import numpy as np, torch
+from repro_torch import configs as C
+from repro_torch.data.synthetic import DataConfig, SyntheticStream
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.train import comm, pipeline as PL
+from repro_torch.train import ddp_shardmap as DDP
+from repro_torch.train.ddp_shardmap import init_error_buffers, make_ddp_train_step
+rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+backend = comm.init_group(rank, world, port, "cuda")
+seen = []                  # the gradients each step hands the optimizer
+apply_grads = DDP.apply_grads
+def spy(model, opt, grads, opt_cfg):
+    seen.append({k: g.cpu().numpy() for k, g in grads.items()})
+    return apply_grads(model, opt, grads, opt_cfg)
+DDP.apply_grads = spy
+dev = comm.rank_device("cuda", rank, backend)
+cfg = replace(C.get_config("smollm-135m").reduced(), n_layers=4)
+ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2)
+stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                    global_batch=4))
+res = {"backend": backend}
+for compress in (True, False):
+    model = T.init_params(cfg, 0, dev)
+    opt = adamw.init_state(dict(model.named_parameters()), ocfg)
+    err = init_error_buffers(model)
+    step = make_ddp_train_step(cfg, ocfg, compress=compress)
+    losses = []
+    seen.clear()
+    for i in range(6):
+        b = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in stream.batch(i).items()}
+        model, opt, err, loss = step(model, opt, err, b)
+        losses.append(float(loss))
+    res[f"losses_{int(compress)}"] = np.array(losses)
+    if not compress:
+        res.update({f"grad/{k}": g for k, g in seen[0].items()})
+model = T.init_params(cfg, 0, dev)
+x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(1)).to(dev)
+with torch.no_grad():
+    h = PL.make_pipelined_forward(cfg, None, 2)(model, x)
+    ref = PL._stage_apply(model.blocks, x, cfg,
+                          torch.arange(64, device=dev)[None].expand(4, 64))
+res["h"], res["ref"] = h.cpu().numpy(), ref.cpu().numpy()
+np.savez(out + f"/rank{rank}.npz", **res)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_lm_ddp_and_pipeline_two_ranks_on_card(dev, tmp_path):
+    """Two ranks on the card (gloo through pinned host memory on one card,
+    NCCL on two): the reduced smollm's DDP step with and without
+    compression (the ranks agree, both curves fall, the last losses
+    within JAX's 0.25), every uncompressed loss equal to one process's
+    step on the global batch (float32, 1e-5) and the first step's
+    averaged gradient to its gradient (1e-5 of each leaf's largest
+    entry), and the GPipe forward over 2 stages equal to the sequential
+    layers (1e-5).  No kernel launched in this process."""
+    from dataclasses import replace
+    from _torch_dist import run_ranks
+    from repro_torch import configs as C
+    from repro_torch.data.synthetic import DataConfig, SyntheticStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_grad_fn, make_train_step
+    build.reset_launch_counts()
+    ranks = run_ranks(CARD_DIST, 2, tmp_path)
+    a, b = ranks
+    for c in (0, 1):
+        np.testing.assert_array_equal(a[f"losses_{c}"], b[f"losses_{c}"])
+        assert a[f"losses_{c}"][-1] < a[f"losses_{c}"][0]
+    assert abs(a["losses_1"][-1] - a["losses_0"][-1]) < 0.25
+    for r in ranks:
+        np.testing.assert_allclose(r["h"], ranks[0]["ref"], rtol=1e-5,
+                                   atol=1e-5)
+    cfg = replace(C.get_config("smollm-135m").reduced(), n_layers=4)
+    ocfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2)
+    model = T.init_params(cfg, 0, dev)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                        global_batch=4))
+    batches = [{k: torch.from_numpy(v).to(dev, torch.long)
+                for k, v in stream.batch(i).items()} for i in range(6)]
+    grads = make_grad_fn(cfg)(model, batches[0])[2]
+    for k, g in grads.items():
+        g = g.float().cpu().numpy()
+        np.testing.assert_allclose(a[f"grad/{k}"], g, rtol=0,
+                                   atol=1e-5 * float(np.abs(g).max()),
+                                   err_msg=k)
+    step = make_train_step(cfg, ocfg)
+    opt = adamw.init_state(dict(model.named_parameters()), ocfg)
+    losses = []
+    for batch in batches:
+        model, opt, metrics = step(model, opt, batch)
+        losses.append(float(metrics["loss"]))
+    np.testing.assert_allclose(a["losses_0"], losses, rtol=1e-5, atol=0)
+    assert not any(build.launch_counts().values())
+
+
+def test_comm_stages_cuda_tensors_through_gloo(dev, tmp_path):
+    """A world of two gloo ranks holding CUDA tensors: all_reduce (SUM,
+    MAX, int32) and the ring shift give the right values on the card."""
+    from _torch_dist import run_ranks
+    script = r'''
+import sys
+import numpy as np, torch, torch.distributed as dist
+from repro_torch.train import comm
+rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=world, rank=rank)
+dev = torch.device("cuda", 0)
+s = comm.all_reduce(torch.full((5,), rank + 1.0, device=dev))
+m = comm.all_reduce(torch.tensor(float(rank), device=dev), dist.ReduceOp.MAX)
+i = comm.all_reduce(torch.full((3,), rank + 2, dtype=torch.int32, device=dev))
+r = comm.ring_shift(torch.full((2,), float(rank), device=dev))
+assert s.is_cuda and r.is_cuda
+np.savez(out + f"/rank{rank}.npz", s=s.cpu().numpy(), m=m.cpu().numpy(),
+         i=i.cpu().numpy(), r=r.cpu().numpy())
+dist.destroy_process_group()
+'''
+    got = run_ranks(script, 2, tmp_path)
+    for rank, g in enumerate(got):
+        np.testing.assert_array_equal(g["s"], np.full(5, 3.0, np.float32))
+        assert float(g["m"]) == 1.0
+        np.testing.assert_array_equal(g["i"], np.full(3, 5, np.int32))
+        np.testing.assert_array_equal(g["r"], np.full(2, 1.0 - rank,
+                                                      np.float32))
