@@ -195,9 +195,18 @@ Phases, each of which raises on failure:
      (within LM_TOL_BF16); (b)
      the GPipe forward over 2 stages of 15 layers in 4 microbatches of
      the same batch against the sequential layers on the same card
-     (JAX's 2e-2), both timed; (d) the dry run's one-card estimate of
-     phase 10's step (a 1 x 1 mesh, 8 x 2,048) beside phase 10's
-     measured step and `train_bound`.
+     (JAX's 2e-2), both timed; (b') the pipelined loss's gradient over
+     the same 2 stages on a float32 copy of smollm-135m (30 layers, d
+     576) at a global batch of 8 x 512 in 4 microbatches of 2 x 512,
+     held on rank 0 against `make_grad_fn`'s on the same weights and
+     batch (loss within PIPE_GRAD_TOL_LOSS relative, every leaf within
+     PIPE_GRAD_TOL_LEAF x its max |g|), each layer's gradient on the rank
+     of its stage (zeros on the other), the replicated leaves equal bit
+     for bit on both ranks, the backward's ring, share and input
+     collectives counted exactly; the pipelined forward + backward timed
+     against the sequential gradient, with each rank's peak; (d) the dry
+     run's one-card estimate of phase 10's step (a 1 x 1 mesh, 8 x
+     2,048) beside phase 10's measured step and `train_bound`.
 
 The services of phases 4, 5, 5b, 5c, 5d and 7 run through their bucket
 graphs; where a phase counts a service call's launches exactly, it
@@ -386,6 +395,18 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_WARMUP, TRAIN_TIMED = 10, 5, 2, 5
 DIST_FULL = ("smollm-135m", 8, 2048)
 DIST_RANKS, DIST_STEPS, DIST_FALLING, PIPE_MICRO = 2, 12, 5, 4
 DIST_TOL_LAST, PIPE_TOL = 0.25, 2e-2
+# (b') the pipelined loss's gradient (`train/pipeline.py:pipelined_loss`)
+# over the DIST_RANKS stages in PIPE_MICRO microbatches, on a float32 copy
+# of the published config, held against `make_grad_fn`'s on rank 0: the
+# loss within PIPE_GRAD_TOL_LOSS relative, each leaf within
+# PIPE_GRAD_TOL_LEAF x its max |g|.  512 positions: a stage keeps every
+# microbatch's activations (no remat inside a stage, JAX's
+# `_stage_apply`), the chunked attention's float32 scores among them,
+# about 120 KB a token a layer: ~7 GB a rank at 8 x 512, four times that
+# a token at 2,048, past two ranks on one 80 GB card
+PIPE_GRAD_FULL = ("smollm-135m", 8, 512)
+PIPE_GRAD_TOL_LOSS, PIPE_GRAD_TOL_LEAF = 1e-5, 1e-4
+PIPE_KINDS = ("ring", "share", "input")
 DIST_DRYRUN = (("qwen2-0.5b", "decode_32k", "multi"),
                ("smollm-135m", "train_4k", "single"))
 
@@ -661,9 +682,174 @@ def dist_worker(rank: int, world: int, port: int, out: str, arch: str,
                                                    atol=PIPE_TOL)),
                         finite=bool(torch.isfinite(h).all()))
     res["pipeline"] = pipe
+    del model, x, h
+    if cuda:
+        torch.cuda.empty_cache()
+    res["pipe_grad"] = dist_pipe_grad(rank, world, dev, out, n_micro,
+                                      reduced)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+def dist_pipe_grad(rank: int, world: int, dev, out: str, n_micro: int,
+                   reduced: bool = False) -> dict:
+    """(b') on one rank of a joined group: the pipelined loss and its
+    gradient on a float32 copy of PIPE_GRAD_FULL's config, once to warm
+    up and once timed with the backward's collectives counted (calls,
+    bytes, seconds by kind); each rank's peak; whether the layers of the
+    other stages got zeros.  Rank r > 0 saves the gradients it holds
+    (its stage's layers, the replicated leaves) to out; after a barrier
+    rank 0 times `make_grad_fn` on the same weights and batch and holds
+    the pipelined loss and every leaf against it.  `reduced`: the
+    reduced config at 4 x 32 (a rehearsal on CPU ranks)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs as C
+    from repro_torch.data.synthetic import DataConfig, SyntheticStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import comm
+    from repro_torch.train import pipeline as PL
+    from repro_torch.train.step import make_grad_fn
+    arch, b, s = PIPE_GRAD_FULL
+    cfg = C.get_config(arch)
+    if reduced:
+        cfg, b, s = cfg.reduced(), 4, 32
+    cfg = dataclasses.replace(cfg, dtype="float32", param_dtype_str="float32")
+    per = cfg.n_layers // world
+    cuda = torch.device(dev).type == "cuda"
+    model = T.init_params(cfg, 0, dev).requires_grad_(True)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                        global_batch=b))
+    batch = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in stream.batch(0).items()}
+    names, params = zip(*model.named_parameters())
+
+    def stage_of(name):
+        return int(name.split(".")[1]) // per \
+            if name.startswith("blocks.") else None
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def run():
+        stats = {k: comm.Stats() for k in PIPE_KINDS}
+        sync()
+        t0 = time.perf_counter()
+        loss = PL.pipelined_loss(cfg, None, n_micro, stats)(model, batch)
+        fwd = {k: (st.calls, st.bytes, st.seconds)
+               for k, st in stats.items()}
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        bwd = {k: dict(calls=st.calls - fwd[k][0],
+                       bytes=st.bytes - fwd[k][1],
+                       ms=1e3 * (st.seconds - fwd[k][2]))
+               for k, st in stats.items()}
+        return loss.detach(), dict(zip(names, grads)), ms, bwd
+
+    run()                                        # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    loss, grads, ms, bwd = run()
+    res = dict(ms=ms, backward=bwd, loss=loss.item(),
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+               else None,
+               finite=all(bool(torch.isfinite(g).all())
+                          for g in grads.values()),
+               placed=all(not g.any() for k, g in grads.items()
+                          if stage_of(k) not in (None, rank)),
+               ticks=n_micro + world - 1, microbatches=n_micro,
+               layers_per_stage=per, batch=b, seq=s, d_model=cfg.d_model)
+    held = {k: g for k, g in grads.items() if stage_of(k) in (None, rank)}
+    if rank:
+        torch.save({k: g.cpu() for k, g in held.items()},
+                   os.path.join(out, f"pipe_grads{rank}.pt"))
+    del grads
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()                   # every rank's activations are freed
+    if rank == 0:
+        grad_fn = make_grad_fn(cfg)
+        grad_fn(model, batch)                    # warm-up
+        sync()
+        t0 = time.perf_counter()
+        seq_loss, _m, seq = grad_fn(model, batch)
+        sync()
+        res["sequential_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["loss_rel"] = abs(loss.item() - seq_loss.item()) \
+            / abs(seq_loss.item())
+        res["sequential_loss"] = seq_loss.item()
+        others = [torch.load(os.path.join(out, f"pipe_grads{r}.pt"))
+                  for r in range(1, world)]
+        owned = dict(held)
+        equal = True
+        for theirs in others:
+            for k, g in theirs.items():
+                g = g.to(dev)
+                if stage_of(k) is None:
+                    equal = equal and torch.equal(g, held[k])
+                else:
+                    owned[k] = g
+        worst, worst_leaf = 0.0, None
+        for k, want in seq.items():
+            scale = want.abs().max().item()
+            err = (owned[k] - want).abs().max().item() / max(scale, 1e-30)
+            if err > worst:
+                worst, worst_leaf = err, k
+        res.update(worst_leaf_rel=worst, worst_leaf=worst_leaf,
+                   replicated_equal=equal, leaves=len(seq))
+    dist.barrier()
+    return res
+
+
+def pipe_grad_check(ranks) -> dict:
+    """(b')'s check: the pipelined loss and every leaf against the
+    sequential gradient within the stated tolerances, the gradients
+    where JAX puts them, finite, and the backward's collectives
+    counted exactly: the ring shifts once a tick but the last, the
+    share and the replicated input once each."""
+    pg = [r["pipe_grad"] for r in ranks]
+    g0 = pg[0]
+    b, s, d, ticks = g0["batch"], g0["seq"], g0["d_model"], g0["ticks"]
+    buf = (b // g0["microbatches"]) * s * d * 4
+    whole = b * s * d * 4
+    want = {"ring": (ticks - 1, (ticks - 1) * buf), "share": (1, whole),
+            "input": (1, whole)}
+    for r, g in enumerate(pg):
+        counts = {k: (g["backward"][k]["calls"],
+                      g["backward"][k]["bytes"]) for k in PIPE_KINDS}
+        if counts != want:
+            raise AssertionError(f"rank {r}: the backward's collectives "
+                                 f"{counts}, not {want}")
+        if not (g["finite"] and g["placed"]) or g["loss"] != g0["loss"]:
+            raise AssertionError(f"rank {r}: pipelined gradient {g}")
+    if not (g0["loss_rel"] <= PIPE_GRAD_TOL_LOSS
+            and g0["worst_leaf_rel"] <= PIPE_GRAD_TOL_LEAF
+            and g0["replicated_equal"]):
+        raise AssertionError(f"pipelined gradient against the "
+                             f"sequential one: {g0}")
+    summary = dict(
+        ms=g0["ms"], sequential_ms=g0["sequential_ms"],
+        loss=g0["loss"], sequential_loss=g0["sequential_loss"],
+        loss_rel=g0["loss_rel"], worst_leaf_rel=g0["worst_leaf_rel"],
+        worst_leaf=g0["worst_leaf"], leaves=g0["leaves"],
+        backward=g0["backward"],
+        peak_bytes=[g["peak_bytes"] for g in pg],
+        stages=len(ranks), layers_per_stage=g0["layers_per_stage"],
+        microbatches=g0["microbatches"], batch=b, seq=s,
+        tol=dict(loss=PIPE_GRAD_TOL_LOSS, leaf=PIPE_GRAD_TOL_LEAF))
+    log(f"lm_dist pipelined gradient, {PIPE_GRAD_FULL[0]} float32 over "
+        f"{len(ranks)} stages of {g0['layers_per_stage']} layers, "
+        f"batch {b} x {s} in {g0['microbatches']} microbatches: "
+        f"forward + backward {g0['ms']:.1f} ms against the sequential "
+        f"gradient's {g0['sequential_ms']:.1f} ms (rank 0 alone); loss "
+        f"{g0['loss']:.6f} ({g0['loss_rel']:.2e} relative), worst leaf "
+        f"{g0['worst_leaf']} {g0['worst_leaf_rel']:.2e} x its max |g|; "
+        f"backward collectives {json.dumps(g0['backward'])}; peak a "
+        f"rank {[g['peak_bytes'] for g in pg]} bytes")
+    return summary
 
 
 def main() -> int:
@@ -3589,6 +3775,7 @@ class Smoke:
         if not (pipe["within"] and pipe["finite"]):
             raise AssertionError(f"pipelined forward against the "
                                  f"sequential layers: {pipe}")
+        summary_grad = pipe_grad_check(ranks)
         summary = dict(backend=r0["backend"], devices=[r["device"]
                                                        for r in ranks],
                        last_loss_diff=last, gaps=gaps, exchange=ex,
@@ -3609,6 +3796,7 @@ class Smoke:
             max_abs_err=pipe["max_abs_err"], ref_max=pipe["ref_max"],
             stages=DIST_RANKS, layers_per_stage=pipe["layers_per_stage"],
             microbatches=PIPE_MICRO)
+        summary["pipe_grad"] = summary_grad
         log(f"lm_dist {arch} over {DIST_RANKS} ranks ({r0['backend']}, "
             f"{summary['devices']}), batch {b} x {s}: {json.dumps(summary)}")
         return summary

@@ -184,8 +184,10 @@ def mamba_apply(p, x, cfg, mode: str = "train", state=None):
     a = -torch.exp(p.a_log)                                  # (di,N)
     # the streams in bf16, each step's (B,di,N) rebuilt from its slices
     dt16, bm16, cm16, xc16 = (t.to(torch.bfloat16) for t in (dt, bm, cm, xc))
-    hstate = torch.zeros((b, xc.shape[-1], D_STATE), dtype=torch.float32,
-                         device=x.device)
+    # zeros (B,di,N) that carry a gradient where `a` does, so that the
+    # first step is like the others (a cost walk that collapses the scan
+    # counts one step S times)
+    hstate = (a * 0).expand(b, -1, -1)
     ys = []
     for t in steps(s, "mamba_scan"):
         dtf = dt16[:, t].float()

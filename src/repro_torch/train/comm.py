@@ -13,6 +13,13 @@ world of one: the tensor as it is.  `Stats` adds up, per collective
 call, the payload bytes (each tensor's size, as JAX's cost walk counts
 them) and the seconds between a synchronise before the call and one
 after it.
+
+`ring_shift` and `all_reduce` record no autograd graph (the DDP step
+and `no_grad` callers).  The pipeline's loss is differentiated through
+`ring_shift_ad`, `share_ad` and `replicated_ad`, whose backwards are
+JAX's transposes of `ppermute`, of `psum` to a replicated output and of
+a replicated input, each one collective counted in its `Stats` like a
+forward's.
 """
 
 from __future__ import annotations
@@ -102,27 +109,26 @@ def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None,
     return t
 
 
-def ring_shift(t: torch.Tensor, group=None,
-               stats: Stats | None = None) -> torch.Tensor:
-    """JAX's `ppermute` over the ring i -> (i + 1) % P: `t` goes to the
-    next rank and the previous rank's tensor comes back, in one
-    `batch_isend_irecv`."""
+def _shift(t: torch.Tensor, group, stats: Stats | None,
+           step: int) -> torch.Tensor:
+    """`t` to rank (r + step) % P and the tensor of rank (r - step) % P
+    back, in one `batch_isend_irecv`."""
     n = world(group)
     if n == 1:
         return t
     r = rank(group)
-    nxt, prev = (r + 1) % n, (r - 1) % n
+    to, frm = (r + step) % n, (r - step) % n
     if group is not None:
-        nxt, prev = (dist.get_global_rank(group, nxt),
-                     dist.get_global_rank(group, prev))
+        to, frm = (dist.get_global_rank(group, to),
+                   dist.get_global_rank(group, frm))
     _sync(t)
     t0 = time.perf_counter()
     staged = _staged(t, group)
     send = _host(t) if staged else t.contiguous()
     recv = torch.empty_like(send)
     for w in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, send, nxt, group),
-            dist.P2POp(dist.irecv, recv, prev, group)]):
+            dist.P2POp(dist.isend, send, to, group),
+            dist.P2POp(dist.irecv, recv, frm, group)]):
         w.wait()
     out = recv.to(t.device) if staged else recv
     _sync(out)
@@ -131,3 +137,84 @@ def ring_shift(t: torch.Tensor, group=None,
         stats.bytes += t.numel() * t.element_size()
         stats.seconds += time.perf_counter() - t0
     return out
+
+
+def ring_shift(t: torch.Tensor, group=None,
+               stats: Stats | None = None) -> torch.Tensor:
+    """JAX's `ppermute` over the ring i -> (i + 1) % P: `t` goes to the
+    next rank and the previous rank's tensor comes back, in one
+    `batch_isend_irecv`.  Records no autograd graph (`ring_shift_ad`
+    does)."""
+    return _shift(t, group, stats, 1)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's collectives as autograd functions: each backward is JAX's
+# transpose of the collective.  A backward runs a collective, so every rank
+# must run the same backward nodes in the same order (train/pipeline.py).
+# ---------------------------------------------------------------------------
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, stats):
+        ctx.group, ctx.stats = group, stats
+        return _shift(t, group, stats, 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        # ppermute's transpose is the inverse permutation: the cotangent
+        # goes to (r - 1) % P and comes from (r + 1) % P
+        return _shift(ct, ctx.group, ctx.stats, -1), None, None
+
+
+class _Share(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, stats):
+        ctx.group, ctx.stats = group, stats
+        ctx.mark_dirty(t)
+        return all_reduce(t, group=group, stats=stats)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ct.clone(memory_format=torch.contiguous_format)
+        return all_reduce(g, group=ctx.group, stats=ctx.stats) \
+            / world(ctx.group), None, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, stats):
+        ctx.group, ctx.stats = group, stats
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ct.clone(memory_format=torch.contiguous_format)
+        return all_reduce(g, group=ctx.group, stats=ctx.stats), None, None
+
+
+def ring_shift_ad(t: torch.Tensor, group=None,
+                  stats: Stats | None = None) -> torch.Tensor:
+    """`ring_shift` that autograd differentiates: the backward shifts the
+    cotangent the other way round the ring (JAX's transpose of
+    `ppermute`), counted in `stats` like the forward."""
+    return _RingShift.apply(t, group, stats)
+
+
+def share_ad(t: torch.Tensor, group=None,
+             stats: Stats | None = None) -> torch.Tensor:
+    """`t` summed over the ranks, in place, as an output that every rank
+    holds whole (JAX's `psum` under a `shard_map` with out spec P()).
+    The backward gives each rank psum(ct) / P: `shard_map` divides an
+    unmapped output's cotangent by the axis size, and psum's transpose is
+    psum (one all-reduce, counted in `stats`)."""
+    return _Share.apply(t, group, stats)
+
+
+def replicated_ad(t: torch.Tensor, group=None,
+                  stats: Stats | None = None) -> torch.Tensor:
+    """The identity on an input that every rank holds whole (JAX's in
+    spec P()); the backward sums its cotangent over the ranks, JAX's
+    transpose of a replicated input (one all-reduce, counted in
+    `stats`)."""
+    return _Replicated.apply(t, group, stats)

@@ -9,15 +9,35 @@ boundary.  The loop is JAX's: n_micro + P - 1 ticks, and in each tick
 every stage (a) takes microbatch t in if it is stage 0, (b) runs its
 layers on its resident microbatch if one is there, (c) the last stage
 emits a finished microbatch, (d) every stage passes its buffer to the
-next one (`comm.ring_shift`: one `batch_isend_irecv` to (s+1) % P and
-from (s-1) % P, JAX's `ppermute`).  The last stage's output is shared
-with an all_reduce of it and the other stages' zeros (JAX's psum).
-JAX computes every stage in every tick and selects; the port runs a
-stage's layers only in the ticks where it holds a microbatch, which
-gives the same values.  Bubble fraction = (P-1)/(n_micro+P-1).
+next one (one `batch_isend_irecv` to (s+1) % P and from (s-1) % P,
+JAX's `ppermute`).  The last stage's output is shared with an
+all_reduce of it and the other stages' zeros (JAX's psum).  JAX
+computes every stage in every tick and selects; the port runs a stage's
+layers only in the ticks where it holds a microbatch, which gives the
+same values.  Bubble fraction = (P-1)/(n_micro+P-1).
 
 Every rank holds the whole model (its stage's layers are the ones it
 runs) and the whole activation stream, as JAX's replicated inputs.
+
+The loss is differentiable, with the gradient `jax.grad` gives JAX's:
+the ring, the share and the replicated input are autograd functions
+whose backwards are JAX's transposes (`comm.ring_shift_ad`, `share_ad`,
+`replicated_ad`).  Each backward is a collective, so every rank's graph
+has the same collective nodes: stage 0's ingest and the last stage's
+emission are masks (`torch.where` on a tensor condition, JAX's
+`jnp.where`), not replacements, so that no received buffer drops out of
+a rank's graph; every rank's emitted microbatches go into the share.
+The ring nodes are one a tick, each feeding the next tick, so the
+engine runs their backwards last tick first on every rank, and the
+sends and receives pair up (a mismatched pair would go unnoticed: the
+buffers all have one shape).  The last tick's shift feeds nothing on
+any rank, so no rank runs its backward.  After the backward each layer's
+gradient is on the rank of its stage (zeros on the others), and the
+embedding's, the final norm's and the head's are whole and equal on
+every rank, where JAX's sit.  Differentiate with respect to every
+parameter (`loss.backward()`, or `torch.autograd.grad` of them all): a
+rank whose own parameters the graph does not reach would skip its
+collectives.
 """
 
 from __future__ import annotations
@@ -36,12 +56,15 @@ def _stage_apply(blocks, x, cfg, positions):
     return x
 
 
-def make_pipelined_forward(cfg, group, n_micro: int):
+def make_pipelined_forward(cfg, group, n_micro: int, stats=None):
     """forward(model, embeds (B,S,D)) -> hidden states (B,S,D) before the
-    final norm, on every rank.
+    final norm, on every rank; differentiable (module docstring).
 
-    Requires batch % n_micro == 0 and n_repeats % stages == 0 (JAX's
-    asserts; ValueError here).
+    stats: {"ring", "share", "input"} -> `comm.Stats` (any of them), the
+    calls and bytes of the ring's shifts, the closing share and the
+    replicated input's cotangent sum (backward only), forward and
+    backward alike.  Requires batch % n_micro == 0 and n_repeats %
+    stages == 0 (JAX's asserts; ValueError here).
     """
     stages = comm.world(group)
     reps = T.n_repeats(cfg)
@@ -49,6 +72,7 @@ def make_pipelined_forward(cfg, group, n_micro: int):
         raise ValueError(f"{reps} repeat units do not split over {stages} "
                          "stages")
     per = cfg.n_layers // stages
+    stats = stats or {}
 
     def forward(model, x):
         stage = comm.rank(group)
@@ -59,32 +83,34 @@ def make_pipelined_forward(cfg, group, n_micro: int):
                              "microbatches")
         mb = b // n_micro
         positions = torch.arange(s, device=x.device)[None].expand(mb, s)
+        x = comm.replicated_ad(x, group, stats.get("input"))
         stream = x.reshape(n_micro, mb, s, d)
+        first = torch.tensor(stage == 0, device=x.device)
+        last = torch.tensor(stage == stages - 1, device=x.device)
         buf = torch.zeros((mb, s, d), dtype=x.dtype, device=x.device)
-        out = torch.zeros_like(stream)
+        outs = []
         for t in range(n_micro + stages - 1):
-            if stage == 0 and t < n_micro:       # stage 0 ingests t
-                buf = stream[t]
+            if t < n_micro:                      # stage 0 ingests t
+                buf = torch.where(first, stream[t], buf)
             m = t - stage                        # microbatch id here
             if 0 <= m < n_micro:
                 buf = _stage_apply(blocks, buf, cfg, positions)
-            done_id = t - (stages - 1)           # the last stage emits
-            if stage == stages - 1 and 0 <= done_id < n_micro:
-                out[done_id] = buf
-            buf = comm.ring_shift(buf, group)
-        if stage != stages - 1:
-            out.zero_()
-        return comm.all_reduce(out, group=group).reshape(b, s, d)
+            if t >= stages - 1:                  # the last stage emits
+                outs.append(torch.where(last, buf, 0.0))   # t - (P - 1)
+            buf = comm.ring_shift_ad(buf, group, stats.get("ring"))
+        out = comm.share_ad(torch.stack(outs), group, stats.get("share"))
+        return out.reshape(b, s, d)
 
     return forward
 
 
-def pipelined_loss(cfg, group, n_micro: int):
+def pipelined_loss(cfg, group, n_micro: int, stats=None):
     """CE loss using the pipelined backbone (embeds and labels on every
-    rank).  Forward only: the ring's sends and receives record no
-    autograd graph, so no gradient flows through it (JAX differentiates
-    through `ppermute`); the backward is not ported."""
-    fwd = make_pipelined_forward(cfg, group, n_micro)
+    rank), the same on every rank, differentiable through the ring
+    (module docstring): CE only (the MoE's aux is dropped, as JAX's
+    `_stage_apply` drops it), MoE capacity per microbatch, no remat
+    inside a stage.  stats: as `make_pipelined_forward`'s."""
+    fwd = make_pipelined_forward(cfg, group, n_micro, stats)
 
     def loss_fn(model, batch):
         x = T._embed_inputs(model, batch, cfg)

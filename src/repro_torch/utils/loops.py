@@ -5,7 +5,9 @@
 `collapsing`; inside it `steps` yields the first index only and the walk
 counts that iteration's ops (and their backward) n times.  The loop's
 results then stand for all n iterations in shape only, so a caller whose
-later code depends on the other iterations' values must not use it.
+later code depends on the other iterations' values must not use it; and
+a loop whose first iteration does other work than the rest (a carry
+that starts from a tensor with no gradient) is counted as n first ones.
 
 This module imports nothing, so model and training code mark their loops
 (the Mamba scan, the microbatch loop) without depending on the walk.

@@ -152,20 +152,37 @@ def _group_size(args) -> int:
     return 0
 
 
+def _tag(node) -> int:
+    """The loop factor of an autograd node (1: made outside every
+    collapsed loop)."""
+    return node.metadata.get(_LOOP_KEY, 1)
+
+
 class _Walk(TorchDispatchMode):
     def __init__(self, costs: Costs, mult: float):
         super().__init__()
         self.costs = costs
         self.mult = mult
         self.loop = 1               # the collapsed loops' factor
+        # the last tagged node to finish its backward (sequence number)
+        # and the factor of the engine's add of each gradient it sent
+        # out of its loop (by the gradient's TensorImpl)
+        self.sums: tuple = (None, {})
         self.live = 0
         self.refs: dict = {}        # storage -> [bytes, tensors holding it]
 
-    def factor(self) -> float:
+    def factor(self, name: str = "", args=()) -> float:
         """The multiplier of the running op: the walk's, times the
-        collapsed loop's it belongs to (a backward op: its node's)."""
+        collapsed loop's it belongs to (a backward op: its node's; the
+        engine's add of a gradient that a tagged node sent out of its
+        loop: the receiving node's, `_TagLoop`)."""
         node = torch._C._current_autograd_node()
-        loop = node.metadata.get(_LOOP_KEY, 1) if node is not None else 1
+        loop = 1
+        if node is not None:
+            loop = _tag(node)
+            if name == "add" and len(args) > 1 \
+                    and self.sums[0] == node._sequence_nr():
+                loop = self.sums[1].get(args[1]._cdata, loop)
         return self.mult * max(self.loop, loop)
 
     def _free(self, key) -> None:
@@ -205,7 +222,7 @@ class _Walk(TorchDispatchMode):
         ns, name = func.namespace, func._opname
         if ns == "prim":
             return out
-        m = self.factor()
+        m = self.factor(name, args)
         c = self.costs
         outs = _tensors(out)
         if ns in ("c10d", "_c10d_functional"):
@@ -238,18 +255,64 @@ class _Walk(TorchDispatchMode):
 class _TagLoop(torch.overrides.TorchFunctionMode):
     """Marks the autograd nodes made inside a collapsed loop with the
     walk's loop factor there (nested loops' counts multiplied), so the
-    walk multiplies their backward ops too."""
+    walk multiplies their backward ops too: every node made since the
+    loop began (by sequence number) that a function's outputs reach, the
+    ones a composite function (einsum) makes inside itself included.
 
-    def __init__(self, n: int):
+    The whole loop's backward also sums the gradients that its n
+    iterations send to a tensor from outside it (a slice `x[:, t]` of a
+    stream, a weight): the autograd engine adds each one into the
+    tensor's gradient, n - 1 additions that the walk of one iteration
+    never sees.  A tagged node's post-hook bills them, each as the
+    engine's out-of-place add (both operands read, the sum written), at
+    the node's factor less the receiving node's; where the walk's one
+    gradient is not the first to arrive, the engine's own add of it is
+    counted at the receiving node's factor (`_Walk.sums`), so the order
+    in which the engine runs the nodes does not matter.  A backward run
+    inside the loop (the microbatch loop's) sees one iteration's
+    gradients, as the whole loop's does: it bills none past the loop it
+    runs in.  A carry whose first value has no gradient (the zeros a
+    scan starts from) makes the first iteration unlike the others; the
+    walk counts the first."""
+
+    def __init__(self, walk: "_Walk", n: int):
         super().__init__()
-        self.n = n
+        self.walk, self.n = walk, n
+        self.start = torch._C._autograd._get_sequence_nr()
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        for t in _tensors(out):
-            if t.grad_fn is not None:
-                t.grad_fn.metadata[_LOOP_KEY] = self.n
+        todo = [t.grad_fn for t in _tensors(out)]
+        while todo:
+            node = todo.pop()
+            if node is None or hasattr(node, "variable") \
+                    or node._sequence_nr() < self.start \
+                    or _tag(node) >= self.n:
+                continue                  # a leaf's, made before, or done
+            if _LOOP_KEY not in node.metadata:      # one hook a node
+                # (not the node itself: a hook that held it would keep
+                # the graph and its saved tensors alive)
+                node.register_hook(functools.partial(
+                    self._accumulations, node.metadata,
+                    node._sequence_nr(), node.next_functions))
+            node.metadata[_LOOP_KEY] = self.n
+            todo.extend(nxt for nxt, _ in node.next_functions)
         return out
+
+    def _accumulations(self, meta, seq, edges, grad_inputs, _grad_outputs):
+        w = self.walk
+        here = meta[_LOOP_KEY]
+        sums = {}
+        for g, (nxt, _) in zip(grad_inputs, edges):
+            if g is None or nxt is None:
+                continue
+            into = max(_tag(nxt), w.loop)
+            if into < here:
+                sums[g._cdata] = into
+                m = w.mult * (here - into)
+                w.costs.elem_flops += m * g.numel()
+                w.costs.bytes_accessed += m * 3 * _nbytes(g)
+        w.sums = (seq, sums)
 
 
 def _collapse(w: "_Walk", n: int, name: str):
@@ -258,7 +321,7 @@ def _collapse(w: "_Walk", n: int, name: str):
     w.costs.trip_counts[name] = n
     w.loop *= n
     try:
-        with _TagLoop(w.loop):
+        with _TagLoop(w, w.loop):
             yield 0
     finally:
         w.loop //= n

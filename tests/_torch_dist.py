@@ -12,6 +12,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -27,8 +28,12 @@ def free_port() -> int:
 
 def run_ranks(script: str, world: int, out_dir, *args,
               timeout: int = 300) -> list[dict]:
+    """The ranks' npz files; every rank is killed, and the call raises,
+    once `timeout` seconds have passed since the ranks started (a
+    deadlock fails fast)."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     port = free_port()
+    deadline = time.monotonic() + timeout
     procs = [subprocess.Popen(
         [sys.executable, "-c", script, str(r), str(world), str(port),
          str(out_dir), *map(str, args)], env=env, text=True,
@@ -37,7 +42,8 @@ def run_ranks(script: str, world: int, out_dir, *args,
     errs = []
     for r, p in enumerate(procs):
         try:
-            out, err = p.communicate(timeout=timeout)
+            out, err = p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()

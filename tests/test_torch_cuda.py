@@ -1414,6 +1414,68 @@ def test_lm_ddp_and_pipeline_two_ranks_on_card(dev, tmp_path):
     assert not any(build.launch_counts().values())
 
 
+CARD_PIPE_GRAD = r"""
+import sys
+from dataclasses import replace
+import numpy as np, torch
+from repro_torch import configs as C
+from repro_torch.data.synthetic import DataConfig, SyntheticStream
+from repro_torch.models import transformer as T
+from repro_torch.train import comm, pipeline as PL
+rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+backend = comm.init_group(rank, world, port, "cuda")
+dev = comm.rank_device("cuda", rank, backend)
+cfg = replace(C.get_config("smollm-135m").reduced(), n_layers=4)
+model = T.init_params(cfg, 0, dev).requires_grad_(True)
+b = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                               global_batch=4)).batch(0)
+batch = {k: torch.from_numpy(v).to(dev, torch.long) for k, v in b.items()}
+loss = PL.pipelined_loss(cfg, None, 2)(model, batch)
+names, params = zip(*model.named_parameters())
+grads = torch.autograd.grad(loss, params, materialize_grads=True)
+np.savez(out + f"/rank{rank}.npz", loss=loss.item(),
+         **{"g:" + n: g.cpu().numpy() for n, g in zip(names, grads)})
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_pipelined_gradient_two_ranks_on_card(dev, tmp_path):
+    """Two ranks on the card (CUDA tensors through the ring's and the
+    share's autograd functions: gloo through pinned host memory on one
+    card, NCCL on two): the reduced smollm's pipelined loss and gradient
+    over 2 stages in 2 microbatches equal `make_grad_fn`'s on the card
+    (float32: loss 1e-5, each leaf 1e-5 of its largest entry, from the
+    rank that holds it); the other stage's layers get zeros.  No kernel
+    launched in this process."""
+    from dataclasses import replace
+    from _torch_dist import run_ranks
+    from repro_torch import configs as C
+    from repro_torch.data.synthetic import DataConfig, SyntheticStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_grad_fn
+    build.reset_launch_counts()
+    ranks = run_ranks(CARD_PIPE_GRAD, 2, tmp_path, timeout=120)
+    cfg = replace(C.get_config("smollm-135m").reduced(), n_layers=4)
+    model = T.init_params(cfg, 0, dev)
+    b = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                   global_batch=4)).batch(0)
+    loss, _m, grads = make_grad_fn(cfg)(model, {
+        k: torch.from_numpy(v).to(dev, torch.long) for k, v in b.items()})
+    per = cfg.n_layers // 2
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], float(loss), rtol=1e-5)
+    for k, g in grads.items():
+        g = g.float().cpu().numpy()
+        stage = int(k.split(".")[1]) // per if k.startswith("blocks.") \
+            else 0
+        np.testing.assert_allclose(ranks[stage]["g:" + k], g, rtol=0,
+                                   atol=1e-5 * float(np.abs(g).max()),
+                                   err_msg=k)
+        if k.startswith("blocks."):
+            assert not ranks[1 - stage]["g:" + k].any(), k
+    assert not any(build.launch_counts().values())
+
+
 def test_comm_stages_cuda_tensors_through_gloo(dev, tmp_path):
     """A world of two gloo ranks holding CUDA tensors: all_reduce (SUM,
     MAX, int32) and the ring shift give the right values on the card."""

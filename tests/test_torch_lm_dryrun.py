@@ -23,6 +23,7 @@ from repro_torch import configs as C
 from repro_torch.configs import ShapeCell
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as MS
+from repro_torch.models import transformer as T
 from repro_torch.utils import loops
 from repro_torch.utils import op_costs as OC
 
@@ -82,6 +83,62 @@ def test_collapsed_loop_counts_every_step_and_its_backward():
     assert nested.trip_counts == {"outer": 3, "scan": 16}
     assert nested.dot_flops == nested_full.dot_flops == 3 * full.dot_flops
     assert loops.steps(4, "x") == range(4)        # no walk: a plain range
+
+
+@pytest.mark.parametrize("also", [None, "before", "after"])
+def test_collapsed_loop_bills_each_steps_slice_gradient(also):
+    """Each step's gradient of a slice x[:, t] of a stream from outside
+    the loop is added into the stream's gradient by the autograd engine:
+    the collapsed walk bills those additions as the whole walk counts
+    them (bytes within 1%), also where the stream is read outside the
+    loop before it or after it (the engine then adds the loop's gradient
+    itself, in either order)."""
+    def f(x, w):
+        u = x * 2
+        tot = (u * 3).sum() if also == "before" else 0
+        ys = []
+        for t in loops.steps(x.shape[1], "scan"):
+            ys.append((u[:, t] @ w).sum())
+        tot = tot + torch.stack(ys).sum()
+        if also == "after":
+            tot = tot + (u * 3).sum()
+        return torch.autograd.grad(tot, (x, w))
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 32, 64, generator=gen, requires_grad=True)
+    w = torch.randn(64, 64, generator=gen, requires_grad=True)
+    full = OC.analyze(f, x, w)
+    once = OC.analyze(f, x, w, collapse=True)
+    assert once.dot_flops == full.dot_flops
+    assert once.bytes_accessed == pytest.approx(full.bytes_accessed,
+                                                rel=1e-2)
+    # without the billing, the 31 additions of (4, 32, 64) float32 are
+    # missing: more than 30% of the bytes
+    adds = 31 * 3 * x.numel() * 4
+    assert adds > 0.3 * full.bytes_accessed
+
+
+def test_collapsed_mamba_train_walk_matches_the_whole_walk():
+    """Reduced jamba-1.5-large-398b's train gradient at 64 positions
+    (one Mamba and one attention layer): the walk that runs the Mamba
+    scan once counts the products of the whole walk exactly and its
+    bytes within 2%."""
+    from repro_torch.train.step import make_grad_fn
+    cfg = C.get_config("jamba-1.5-large-398b").reduced()
+
+    def walk(collapse):
+        with FakeTensorMode():
+            model = T.init_params(cfg, 0, "cpu")
+            batch = {"tokens": torch.zeros((2, 64), dtype=torch.long),
+                     "labels": torch.zeros((2, 64), dtype=torch.long)}
+            return OC.analyze(make_grad_fn(cfg), model, batch,
+                              collapse=collapse)
+
+    full, once = walk(False), walk(True)
+    assert once.trip_counts == {"mamba_scan": 64}
+    assert once.dot_flops == full.dot_flops
+    assert once.bytes_accessed == pytest.approx(full.bytes_accessed,
+                                                rel=2e-2)
 
 
 def test_cache_write_billed_at_its_window():
