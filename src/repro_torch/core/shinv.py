@@ -13,6 +13,14 @@ on CUDA, 2 * refine_iters + 1 per batched division; `impl` picks
 another rung of the registry (`kernels/ops.py`) with the same result
 bit for bit.
 
+Spans (`obs/telemetry.py:scope`): `divmod_batch` opens `divmod` over
+the whole call, and inside it `divmod/prologue` (the operands' pad,
+prec(u) and the inverse's set-up), one `refine_iter_{i}` per iteration
+with its `fused_step` last, `divmod/epilogue` (the final shift and the
+special cases' answers) and `fused_correct`; `shinv_batch` alone opens
+the iterations'.  Under a bucket executable's capture they are device
+marks that replay with the graph.
+
 Zero-divisor contract (as in the JAX package): divmod(u, 0) = (0, u)
 and shinv(0, h) = 0.
 
@@ -62,26 +70,76 @@ def _initial_w0(V: torch.Tensor):
             (q1 >> LOG_BASE).to(DTYPE))
 
 
-def _refine(v, h, k, w, *, width: int, iters_max: int, windowed: bool = True,
-            impl: str | None = None):
-    """Guarded shorter-iterate/divisor-prefix refinement loop; iteration
-    i runs at the static window `refine_window(i, width, windowed)`."""
-    g = GUARD
-    l = torch.full_like(h, 2)
-    w = A.shift(w, g)
-    hk = h - k
-    need = torch.where(hk - 1 >= 2, A.ceil_log2(torch.clamp(hk - 1, min=1)),
-                       0) + 2
-    for i in range(iters_max):
-        wi = refine_window(i, width, windowed)
-        active = i < need
-        m = torch.clamp(torch.minimum(hk + 1 - l, l), min=0)
-        s = torch.clamp(k - 2 * l + 1 - g, min=0)
-        with T.scope(f"refine_iter_{i}"):
-            w = K.fused_step(v, w, h=k + l + m - s + g, m=m, l=l, s=s,
-                             active=active, g=g, win=wi, impl=impl)
-        l = torch.where(active, l + m - 1, l)
-    return A.shift(w, h - k - l - g)
+class _Inverse:
+    """shinv_h(v) + lambda, lambda in {0, 1} (Theorem 2), per row, in
+    the three stretches of device work that a division's spans name:
+    the set-up (the constructor: the lift of single-limb v, the special
+    cases, the initial approximation and the refinement's set-up),
+    `refine` (the guarded shorter-iterate/divisor-prefix loop) and
+    `select` (the final shift and the special cases' answers).  v:
+    (batch, W) limbs, h: (batch,) int32."""
+
+    def __init__(self, v: torch.Tensor, h: torch.Tensor):
+        self.width = v.shape[-1]
+        h = h.to(device=v.device, dtype=DTYPE)
+        self.v_in, self.h_in = v, h
+
+        # lift single-limb v: floor(B^(h+1) / vB) == floor(B^h / v)
+        small = A.prec(v) <= 1
+        v = self.v = torch.where(small[:, None], A.shift(v, 1), v)
+        h = h + small.to(DTYPE)
+        k = self.k = A.prec(v) - 1
+
+        # special cases (leave B < v <= B^h / 2 for the general path)
+        two_v = A.add(v, v)
+        self.case_zero = A.gt_pow(v, h)                     # v >  B^h -> 0
+        self.case_one = A.gt_pow(two_v, h) & ~self.case_zero  # 2v > B^h -> 1
+        self.case_pow = A.is_pow(v)                          # v == B^k
+
+        # initial approximation from the two most significant limbs
+        V = (A.take_limb(v, k - 1).to(torch.int64)
+             + (A.take_limb(v, k).to(torch.int64) << LOG_BASE))
+        w0 = torch.zeros_like(v)
+        w0[:, 0], w0[:, 1], w0[:, 2] = _initial_w0(V)
+
+        # the refinement's set-up
+        self.l = torch.full_like(h, 2)
+        self.w = A.shift(w0, GUARD)
+        self.hk = h - k
+        self.need = torch.where(
+            self.hk - 1 >= 2, A.ceil_log2(torch.clamp(self.hk - 1, min=1)),
+            0) + 2
+
+    def refine(self, iters_max: int, windowed: bool = True,
+               impl: str | None = None) -> None:
+        """The loop; iteration i runs at the static window
+        `refine_window(i, width, windowed)`, under the span
+        `refine_iter_{i}`, with its `fused_step` last."""
+        g, v, k = GUARD, self.v, self.k
+        w, l, hk, need = self.w, self.l, self.hk, self.need
+        for i in range(iters_max):
+            with T.scope(f"refine_iter_{i}"):
+                wi = refine_window(i, self.width, windowed)
+                active = i < need
+                m = torch.clamp(torch.minimum(hk + 1 - l, l), min=0)
+                s = torch.clamp(k - 2 * l + 1 - g, min=0)
+                l_next = torch.where(active, l + m - 1, l)
+                w = K.fused_step(v, w, h=k + l + m - s + g, m=m, l=l, s=s,
+                                 active=active, g=g, win=wi, impl=impl)
+            l = l_next
+        self.w, self.l = w, l
+
+    def select(self) -> torch.Tensor:
+        """The refined iterate shifted into place, and the special
+        cases' answers; rows with v = 0 give 0."""
+        w = A.shift(self.w, self.hk - self.l - GUARD)
+        w = torch.where(self.case_pow[:, None],
+                        one_hot_pow(self.hk, self.width), w)
+        w = torch.where(self.case_one[:, None],
+                        one_hot_pow(torch.zeros_like(self.h_in), self.width),
+                        w)
+        zero = (self.case_zero | A.is_zero(self.v_in))[:, None]
+        return torch.where(zero, torch.zeros_like(w), w)
 
 
 def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
@@ -89,35 +147,9 @@ def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
                 impl: str | None = None) -> torch.Tensor:
     """shinv_h(v) + lambda, lambda in {0, 1} (Theorem 2), per row.
     v: (batch, W) limbs, h: (batch,) int32.  Rows with v = 0 give 0."""
-    width = v.shape[-1]
-    h = h.to(device=v.device, dtype=DTYPE)
-
-    # lift single-limb v: floor(B^(h+1) / vB) == floor(B^h / v)
-    small = A.prec(v) <= 1
-    v_eff = torch.where(small[:, None], A.shift(v, 1), v)
-    h_eff = h + small.to(DTYPE)
-    k = A.prec(v_eff) - 1
-
-    # special cases (leave B < v <= B^h / 2 for the general path)
-    two_v = A.add(v_eff, v_eff)
-    case_zero = A.gt_pow(v_eff, h_eff)                    # v >  B^h -> 0
-    case_one = A.gt_pow(two_v, h_eff) & ~case_zero        # 2v > B^h -> 1
-    case_pow = A.is_pow(v_eff)                            # v == B^k
-
-    # initial approximation from the two most significant limbs
-    V = (A.take_limb(v_eff, k - 1).to(torch.int64)
-         + (A.take_limb(v_eff, k).to(torch.int64) << LOG_BASE))
-    w0 = torch.zeros_like(v)
-    w0[:, 0], w0[:, 1], w0[:, 2] = _initial_w0(V)
-
-    w = _refine(v_eff, h_eff, k, w0, width=width, iters_max=iters_max,
-                windowed=windowed, impl=impl)
-
-    w = torch.where(case_pow[:, None], one_hot_pow(h_eff - k, width), w)
-    w = torch.where(case_one[:, None], one_hot_pow(torch.zeros_like(h), width),
-                    w)
-    zero = (case_zero | A.is_zero(v))[:, None]
-    return torch.where(zero, torch.zeros_like(w), w)
+    inv = _Inverse(v, h)
+    inv.refine(iters_max, windowed, impl)
+    return inv.select()
 
 
 def check_width(device, m: int, impl: str | None = None) -> None:
@@ -151,12 +183,16 @@ def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True,
     m_limbs = u.shape[1]
     check_width(u.device, m_limbs, impl)
     pad = (0, PAD)
-    uw = torch.nn.functional.pad(u.to(DTYPE), pad).contiguous()
-    vw = torch.nn.functional.pad(v.to(DTYPE), pad).contiguous()
-    h = A.prec(uw)
-    si = shinv_batch(vw, h, refine_iters(m_limbs), windowed=windowed,
-                     impl=impl)
-    q, r = K.fused_correct(uw, vw, si, h=h, impl=impl)
+    with T.scope("divmod"):
+        with T.scope("divmod/prologue"):
+            uw = torch.nn.functional.pad(u.to(DTYPE), pad).contiguous()
+            vw = torch.nn.functional.pad(v.to(DTYPE), pad).contiguous()
+            h = A.prec(uw)
+            inv = _Inverse(vw, h)
+        inv.refine(refine_iters(m_limbs), windowed, impl)
+        with T.scope("divmod/epilogue"):
+            si = inv.select()
+        q, r = K.fused_correct(uw, vw, si, h=h, impl=impl)
     return q[:, :m_limbs], r[:, :m_limbs]
 
 

@@ -10,8 +10,10 @@ load, `LaunchError` when a launch is refused or fails.
 
 Every kernel wrapper counts its launches here (`count`), so a caller can
 show that a run went through the kernels: `reset_launch_counts()`
-before the run, `launch_counts()` after it.  A thread can also record
-its own launches in a `recording` scope: the serving layer's bucket
+before the run, `launch_counts()` after it.  The span marks of
+`csrc/marks.cu` (`kernels/marks.py`) are the one exception: they time
+the counted kernels and are not counted themselves.  A thread can also
+record its own launches in a `recording` scope: the serving layer's bucket
 executables take their static launch profile that way, and a scope
 opened for a CUDA graph capture keeps the captured launches out of the
 counts (nothing ran yet), so that each replay of the graph counts them
@@ -34,7 +36,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("mul", "step", "correct", "barrett", "pairs")
+SOURCES = ("mul", "step", "correct", "barrett", "pairs", "marks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -151,6 +153,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "barrett_smem_bytes": [I, I, I],
         "mul_pairs_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
         "mul_pairs_tile": [],
+        "span_mark_launch": [P, I, P],
+        "span_capture_tail": [P, P],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

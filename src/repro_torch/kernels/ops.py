@@ -289,7 +289,6 @@ def fused_barrett(x, mu, v, *, h: int, impl: str | None = None):
     One kernel launch under cuda_fused on CUDA, else the plain
     composition with impl's product (two products)."""
     from . import fused
-    with T.scope("fused_barrett"):
-        if _fused(impl, x, mu, v):
-            return fused.barrett_cuda(x, mu, v, h=h)
-        return fused.barrett_reference(x, mu, v, h=h, mul=product(impl))
+    if _fused(impl, x, mu, v):
+        return fused.barrett_cuda(x, mu, v, h=h)
+    return fused.barrett_reference(x, mu, v, h=h, mul=product(impl))

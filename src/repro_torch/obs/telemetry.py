@@ -15,19 +15,45 @@ names; each distinct label-value assignment is one series
 metric name, then label values): `Registry.collect` (plain data) and
 `Registry.to_lines` (`name{k=v,...} value`).
 
-`scope` (inside the computation: each Refine iteration, each fused
-stage) and `annotate` (around a service's call) name ranges in a
-`torch.profiler` trace and in NVTX (`torch.profiler.record_function`),
-the counterparts of the JAX package's `scope` and `annotate`; both are
-no-ops unless profiling is switched on with `set_profiling(True)`.  A
-range is host-side only: it adds no kernel to a call or to a captured
-CUDA graph, so launch counts stay exact.
+`scope` (inside the computation: a division's phases, each Refine
+iteration, each fused stage) and `annotate` (around host code: a
+service's call, a bucket executable's copies and replay) name spans,
+the counterparts of the JAX package's `scope` and `annotate`.  Both
+are no-ops unless profiling is switched on with `set_profiling(True)`;
+then each opens a `torch.profiler.record_function` range and logs a
+host span.  The one exception is a `scope` inside a `capturing` block,
+while a bucket executable captures its CUDA graph: it records a device
+mark (`kernels/marks.py`, one thread of
+`csrc/marks.cu:span_mark_kernel` that stamps the card's clock into a
+small ring on the card) as it opens and as it closes, profiling or
+not, so that every replay of the graph times its spans; boundaries
+with nothing captured between them share one mark.  Marks are not
+launches: `kernels.build` counts none of them, so launch counts stay
+exact.
+
+Every span lands in one in-memory log (`span_log`), which keeps the
+newest `LOG_DEPTH`: name, start and end in ns on `torch.profiler`'s
+clock (the host's realtime clock, which its events carry), the
+enclosing span, and a call id shared by the spans of one call (a
+bucket executable's replay and its host spans, or one outermost
+scope).  A replay's marks reach the log only if it was made with
+profiling on.  They are decoded lazily: reading the log reads each live
+ring once, which waits for the card.  A ring keeps its last `depth`
+replays; older ones are counted in `spans_dropped`.  The log outlives
+the executable that wrote it until it is read or reset
+(`reset_span_log`): when an executable is gone, its replays are decoded
+and its ring freed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
+import weakref
+from collections import deque
+from typing import NamedTuple
 
 import torch
 
@@ -281,7 +307,7 @@ def timer():
 
 
 # ---------------------------------------------------------------------------
-# profiler ranges
+# spans: profiler ranges, graph marks and the span log
 # ---------------------------------------------------------------------------
 
 _PROFILING = False
@@ -296,18 +322,248 @@ def profiling_enabled() -> bool:
     return _PROFILING
 
 
-def annotate(name: str):
-    """A named range around host code in a `torch.profiler` trace
-    (`record_function`).  No-op unless profiling is switched on."""
+class Span(NamedTuple):
+    """One logged span; times in ns on the profiler's clock."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None     # id of the enclosing span of the same kind
+    call: int              # shared by the spans of one call
+    id: int
+    device: bool           # marked on the card (else timed on the host)
+
+
+LOG_DEPTH = 1 << 16               # spans the log keeps, the newest
+_ids = itertools.count(1)
+_calls = itertools.count(1)
+_local = threading.local()        # this thread's open spans and capture
+_log_lock = threading.Lock()
+_records: deque = deque(maxlen=LOG_DEPTH)
+_sources: list = []               # the live graphs' marks
+_dropped = 0
+
+
+def new_call() -> int:
+    """A fresh call id (a bucket executable takes one per call)."""
+    return next(_calls)
+
+
+def _stack() -> list:
+    """This thread's open spans: (id, call, True) for a host span,
+    (tape index, None, False) for a span being captured."""
+    return _local.__dict__.setdefault("stack", [])
+
+
+def _log(spans, dropped: int = 0) -> None:
+    global _dropped
+    with _log_lock:
+        _records.extend(spans)
+        _dropped += dropped
+
+
+@contextlib.contextmanager
+def _host_span(name: str, call: int | None):
+    """A `record_function` range and a host span in the log: its parent
+    is the innermost open host span, and it takes `call`, else the call
+    of the innermost open span that has one, else a new one."""
+    stack = _stack()
+    parent = next((s[0] for s in reversed(stack) if s[2]), None)
+    if call is None:
+        call = next((s[1] for s in reversed(stack) if s[1] is not None),
+                    None) or new_call()
+    sid = next(_ids)
+    stack.append((sid, call, True))
+    t0 = time.time_ns()
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        t1 = time.time_ns()
+        stack.pop()
+        _log([Span(name, t0, t1, parent, call, sid, False)])
+
+
+class GraphMarks:
+    """The marks of one captured CUDA graph: `ring`
+    (`kernels/marks.py:Ring`, the last `ring.depth` replays' stamps on
+    the card), the tape made at capture (each span's name, parent and
+    its two mark indices) and the call ids of the replays made with
+    profiling on that the log has not decoded yet.  `capturing(marks)`
+    fills the tape, a mark at each scope boundary, shared by boundaries
+    with nothing captured between them; `start` gives the ring its
+    width and ties the marks to the executable that replays them."""
+
+    def __init__(self, ring):
+        self.ring = ring
+        self.tape: list[list] = []
+        self.width = 0
+        self.rows = 0                       # replays enqueued
+        self.calls: deque = deque(maxlen=ring.depth)  # (row, call)
+        self.lost = 0                       # profiled replays pushed out
+        self._tail = 0                      # the capture's tail after
+        self._lock = threading.Lock()       # the last mark
+
+    def _mark(self) -> int:
+        """The mark of this boundary: the last one where nothing was
+        captured since (the capture's tail is still its node), else a
+        new mark node."""
+        if self._tail and self.ring.tail() == self._tail:
+            return self.width - 1
+        self.ring.mark(self.width)
+        self._tail = self.ring.tail()
+        self.width += 1
+        return self.width - 1
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        stack = _stack()
+        parent = next((s[0] for s in reversed(stack) if not s[2]), None)
+        i = len(self.tape)
+        self.tape.append([name, parent, self._mark(), None])
+        stack.append((i, None, False))
+        try:
+            with (torch.profiler.record_function(name) if _PROFILING
+                  else contextlib.nullcontext()):
+                yield
+        finally:
+            stack.pop()
+            self.tape[i][3] = self._mark()
+
+    def start(self, owner) -> "GraphMarks | None":
+        """After the capture: the ring sized to the tape's marks, and
+        the marks in the log's sources until `owner` is gone (None
+        where the graph made no mark)."""
+        if not self.width:
+            return None
+        self.ring.allocate(self.width)
+        with _log_lock:
+            _sources.append(self)
+        weakref.finalize(owner, _retire, self).atexit = False
+        return self
+
+    def replayed(self, call: int) -> None:
+        """Count one replay enqueued; with profiling on, keep its call
+        id for the log."""
+        with self._lock:
+            if _PROFILING:
+                if len(self.calls) == self.calls.maxlen:
+                    self.lost += 1
+                self.calls.append((self.rows, call))
+            self.rows += 1
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self.calls) + self.lost
+
+    def skip(self) -> None:
+        with self._lock:
+            self.calls.clear()
+            self.lost = 0
+
+    def decode(self) -> tuple[list[Span], int]:
+        """The spans of the profiled replays not decoded yet (the ring
+        read once, which waits for the card) and the count of those
+        the ring no longer holds."""
+        with self._lock:
+            pending, dropped = list(self.calls), self.lost
+            self.calls.clear()
+            self.lost = 0
+        if not pending:
+            return [], dropped
+        stamps = self.ring.read()
+        out = []
+        for r, call in pending:
+            row = stamps[r % self.ring.depth]
+            if not bool((row[:, 2] == r).all()):
+                dropped += 1
+                continue
+            t = row[:, 0].tolist()
+            ids: dict = {}
+            for i, (name, parent, a, b) in enumerate(self.tape):
+                ids[i] = next(_ids)
+                out.append(Span(name, t[a], t[b], ids.get(parent), call,
+                                ids[i], True))
+        return out, dropped
+
+
+def _retire(marks: GraphMarks) -> None:
+    """The executable of `marks` is gone: its profiled replays go into
+    the log, and its ring leaves the sources.  Inside a capture on this
+    thread, where a wait for the card is refused, they count as
+    dropped."""
+    with _log_lock:
+        if marks in _sources:
+            _sources.remove(marks)
+    if not marks.pending():
+        return
+    if getattr(_local, "capture", None) is None and not (
+            marks.ring.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        _log(*marks.decode())
+    else:
+        _log([], marks.pending())
+
+
+@contextlib.contextmanager
+def capturing(marks: GraphMarks):
+    """Inside a CUDA graph capture on this thread: every `scope` marks
+    into `marks`."""
+    prev = getattr(_local, "capture", None)
+    _local.capture = marks
+    try:
+        yield
+    finally:
+        _local.capture = prev
+
+
+def span_log() -> list[Span]:
+    """The log since the last reset, in no set order: the host spans,
+    and the device spans of every replay made with profiling on,
+    decoded now (each live ring read once)."""
+    with _log_lock:
+        sources = list(_sources)
+    for src in sources:
+        _log(*src.decode())
+    with _log_lock:
+        return list(_records)
+
+
+def spans_dropped() -> int:
+    """Replays made with profiling on whose marks were lost before the
+    log read them (their ring had moved on), since the last reset."""
+    return _dropped
+
+
+def reset_span_log() -> None:
+    """Empty the log: what was logged or replayed so far is dropped,
+    uncounted; live executables go on logging their next replays."""
+    global _dropped
+    with _log_lock:
+        _records.clear()
+        _dropped = 0
+        for src in _sources:
+            src.skip()
+
+
+def annotate(name: str, call: int | None = None):
+    """A named host span around host code: a `torch.profiler` range
+    (`record_function`) and a host span in the log, under `call` (by
+    default the call of the enclosing span, or a new one).  No-op
+    unless profiling is switched on."""
     if not _PROFILING:
         return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+    return _host_span(name, call)
 
 
 def scope(name: str):
-    """A named range inside the computation (each Refine iteration, each
-    fused stage), `record_function` as `annotate`.  No-op unless
-    profiling is switched on."""
+    """A named span inside the computation (a division's phases, each
+    Refine iteration, each fused stage).  Inside a `capturing` block:
+    a device mark as it opens and as it closes, recorded in the graph.
+    Otherwise a no-op unless profiling is switched on, and then a host
+    span as `annotate`'s."""
+    marks = getattr(_local, "capture", None)
+    if marks is not None:
+        return marks._span(name)
     if not _PROFILING:
         return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+    return _host_span(name, None)

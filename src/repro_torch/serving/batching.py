@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import marks as KM
 from repro_torch.kernels import ops as K
 from repro_torch.obs import costmodel as CM
 from repro_torch.obs import telemetry as T
@@ -41,6 +42,8 @@ from repro_torch.utils import launch_stats as LS
 
 
 resolve_impl = K.check_impl
+
+MARK_DEPTH = 64           # replays an executable's span marks keep
 
 
 class KernelPlan(NamedTuple):
@@ -81,6 +84,18 @@ class Executable:
     executable; it runs on the caller's current stream.  A capture or
     a replay that fails raises; nothing stands in for the graph.
 
+    The capture runs under `telemetry.capturing`: each `scope` the
+    function opens becomes two device marks in the graph, so every
+    replay stamps its spans (a division's phases, each Refine
+    iteration) into a ring of the last `MARK_DEPTH` replays on the card
+    (`kernels/marks.py:Ring`), without a launch counted or a read back.
+    `marks` is the `telemetry.GraphMarks` (the ring and the tape of
+    spans made at capture), or None where the function opens no scope.
+    With profiling on, a call takes a call id for its replay's spans,
+    which the span log decodes when it is read, and opens the host
+    spans `exe/copy_in`, `exe/replay` and `exe/copy_out` (the clones)
+    under the same id.
+
     On the CPU the executable is fn itself (nothing launches there, and
     `launches` is empty).  `capture_seconds`, `instantiate_seconds` and
     `memory_bytes` (the growth of `torch.cuda.memory_reserved` over the
@@ -90,7 +105,7 @@ class Executable:
         self.plan = plan
         self.device = fill[0].device
         self.launches: dict[str, int] = {}
-        self.graph = None
+        self.graph = self.marks = None
         self.capture_seconds = self.instantiate_seconds = None
         self.memory_bytes = None
         self._fn = fn
@@ -111,6 +126,7 @@ class Executable:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             self.static = LS.trace_profile(fn, *self.inputs)
+        tape = T.GraphMarks(KM.Ring(self.device, MARK_DEPTH))
         # the capture empties the allocator's cache as it starts: empty
         # it first, so that the growth below is the graph's own pool
         torch.cuda.synchronize(self.device)
@@ -120,13 +136,15 @@ class Executable:
         t0 = time.perf_counter()
         with build.recording(capture=True) as self.launches, \
                 torch.cuda.graph(graph, stream=side,
-                                 capture_error_mode="thread_local"):
+                                 capture_error_mode="thread_local"), \
+                T.capturing(tape):
             out = fn(*self.inputs)
         t1 = time.perf_counter()
         graph.instantiate()
         self.instantiate_seconds = time.perf_counter() - t1
         self.capture_seconds = t1 - t0
         self.memory_bytes = torch.cuda.memory_reserved(self.device) - mem
+        self.marks = tape.start(self)
         self._single = isinstance(out, torch.Tensor)
         self.outputs = (out,) if self._single else tuple(out)
         self.graph = graph
@@ -142,11 +160,17 @@ class Executable:
                 raise ValueError(f"argument of shape {tuple(src.shape)}, "
                                  f"expected {tuple(dst.shape)}")
         with self._lock:
-            for dst, src in zip(self.inputs, args):
-                dst.copy_(src)
-            self.graph.replay()
+            call = T.new_call()
+            with T.annotate("exe/copy_in", call):
+                for dst, src in zip(self.inputs, args):
+                    dst.copy_(src)
+            with T.annotate("exe/replay", call):
+                self.graph.replay()
+            if self.marks is not None:
+                self.marks.replayed(call)
             build.count_all(self.launches)
-            out = tuple(o.clone() for o in self.outputs)
+            with T.annotate("exe/copy_out", call):
+                out = tuple(o.clone() for o in self.outputs)
         return out[0] if self._single else out
 
 

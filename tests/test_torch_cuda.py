@@ -1051,13 +1051,15 @@ def test_dryrun_2p15(dev):
 
 def test_scope_adds_no_launch(dev):
     """With profiling on, a divmod and its captured graph launch the
-    model's kernels, no more."""
+    model's kernels, no more; the eager calls (the call and the build's
+    warm-up) log host spans, the replay device spans."""
     from repro_torch.obs import telemetry as T
     from repro_torch.serving import batching as BT
     m = 26
     rnd = random.Random(5)
     u = _t([rnd.randint(0, B ** m - 1) for _ in range(4)], m, dev)
     v = _t([rnd.randint(1, B ** m - 1) for _ in range(4)], m, dev)
+    T.reset_span_log()
     T.set_profiling(True)
     try:
         (q, r), n = _launched(lambda: S.divmod_batch(u, v))
@@ -1065,9 +1067,142 @@ def test_scope_adds_no_launch(dev):
         (q2, r2), n2 = _launched(lambda: exe(u, v))
     finally:
         T.set_profiling(False)
+    spans = T.span_log()
+    assert sum(s.device and s.name == "divmod" for s in spans) == 1
+    assert sum(not s.device and s.name == "divmod" for s in spans) == 2
     assert n == n2 == CM.divmod_launches(m)
     assert sum(exe.launches.values()) == CM.divmod_launches(m)
     assert torch.equal(q, q2) and torch.equal(r, r2)
+
+
+def _marked_division(dev, lanes=64, seed=15):
+    """A divmod executable at 2^15 bits x `lanes`, built on the padding
+    fill, and operands with divisors of 1..1,024 limbs."""
+    from functools import partial
+    from repro_torch.serving import batching as BT
+    m = 2048
+    rnd = random.Random(seed)
+    u = _t([rnd.randint(0, B ** m - 1) for _ in range(lanes)], m, dev)
+    v = _t([rnd.randint(1, B ** rnd.randint(1, m // 2) - 1)
+            for _ in range(lanes)], m, dev)
+    fu = torch.zeros_like(u)
+    fv = fu.clone()
+    fv[:, 0] = 1
+    exe = BT.Executable(partial(S.divmod_batch, impl="cuda_fused"),
+                        (fu, fv), BT.kernel_plan("cuda_fused"))
+    return m, exe, u, v
+
+
+def _phases(spans) -> dict:
+    """{call: (prologue + Refine + finalization ns, Refine ns, Refine
+    glue ns)} of the device spans."""
+    out: dict = {}
+    by_id = {s.id: s for s in spans}
+    for s in spans:
+        if not s.device:
+            continue
+        d = s.end_ns - s.start_ns
+        ph, ref, glue = out.get(s.call, (0, 0, 0))
+        if s.name.startswith("refine_iter_"):
+            ph, ref, glue = ph + d, ref + d, glue + d
+        elif s.name in ("divmod/prologue", "divmod/epilogue",
+                        "fused_correct"):
+            ph += d
+        elif s.name == "fused_step" and \
+                by_id[s.parent].name.startswith("refine_iter_"):
+            glue -= d
+        out[s.call] = (ph, ref, glue)
+    return out
+
+
+def test_marks_change_no_answer_and_no_launch_count(dev):
+    """Through the executable at 2^15 bits x 64 lanes: the spans are
+    2 * refine_iters + 4, their marks as many nodes (a boundary with
+    nothing captured since the last mark shares it), and the answers
+    are bit-equal to eager `divmod_batch`'s with the cost model's
+    launches counted a replay."""
+    m, exe, u, v = _marked_division(dev)
+    assert len(exe.marks.tape) == 2 * S.refine_iters(m) + 4
+    assert exe.marks.width == 2 * S.refine_iters(m) + 4
+    (q1, r1), counts = _replayed(exe, (u, v))
+    q2, r2 = S.divmod_batch(u, v)
+    assert torch.equal(q1, q2) and torch.equal(r1, r2)
+    assert sum(exe.launches.values()) == CM.divmod_launches(m)
+    assert counts == {k: 3 * n for k, n in exe.launches.items()}
+
+
+def test_division_phases_sum_to_an_event_timed_replay(dev):
+    """Prologue + Refine + finalization from the span log come within
+    2% of each call's CUDA-event time (calls queued behind a spin, so
+    the host adds no gap), with the Refine glue inside the Refine."""
+    from repro_torch.obs import telemetry as T
+    m, exe, u, v = _marked_division(dev)
+    exe(u, v)
+    torch.cuda.synchronize()
+    T.reset_span_log()
+    events = []
+    T.set_profiling(True)
+    try:
+        torch.cuda._sleep(50_000_000)
+        for _ in range(5):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            exe(u, v)
+            e1.record()
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+    finally:
+        T.set_profiling(False)
+    spans = T.span_log()
+    assert T.spans_dropped() == 0
+    phases = [p for _, p in sorted(_phases(spans).items())]
+    assert len(phases) == 5
+    for (e0, e1), (ph, ref, glue) in zip(events, phases):
+        ms = e0.elapsed_time(e1)
+        assert abs(ph / 1e6 - ms) <= 0.02 * ms, (ph / 1e6, ms)
+        assert 0 <= glue <= ref
+
+
+def test_span_log_matches_the_profiler(dev):
+    """In one torch.profiler trace every `span_mark_kernel` starts
+    within 0.1 ms of a mark time of the log and every mark time lies
+    within 0.1 ms of one, a replay's worth of kernels a call; the host
+    span `exe/replay` starts within 0.1 ms of its profiler range."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import telemetry as T
+    m, exe, u, v = _marked_division(dev)
+    exe(u, v)
+    torch.cuda.synchronize()
+    T.reset_span_log()
+    T.set_profiling(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                exe(u, v)
+            torch.cuda.synchronize()
+    finally:
+        T.set_profiling(False)
+    spans = T.span_log()
+    events = prof.profiler.kineto_results.events()
+    kernels = sorted(ev.start_ns() for ev in events
+                     if ev.name().startswith("span_mark_kernel")
+                     and str(ev.device_type()).endswith("CUDA"))
+    marks = sorted({t for s in spans if s.device
+                    for t in (s.start_ns, s.end_ns)})
+    assert len(kernels) == 3 * exe.marks.width
+    assert len({s.call for s in spans if s.device}) == 3
+
+    def far(xs, ys):
+        return max(min(abs(x - y) for y in ys) for x in xs)
+
+    assert far(kernels, marks) <= 100_000 and far(marks, kernels) <= 100_000
+    ranges = sorted(ev.start_ns() for ev in events
+                    if ev.name() == "exe/replay"
+                    and not str(ev.device_type()).endswith("CUDA"))
+    hosts = sorted(s.start_ns for s in spans if s.name == "exe/replay")
+    assert len(ranges) == len(hosts) == 3
+    assert far(hosts, ranges) <= 100_000
 
 
 # ---------------------------------------------------------------------------
