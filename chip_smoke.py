@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure:
   1. the card (nvidia-smi name and power limit);
-  2. build the six kernels from src/repro_torch/kernels/csrc with nvcc
+  2. build the seven kernels from src/repro_torch/kernels/csrc with nvcc
      (one nvcc per source, all at once, into the git-ignored
      src/repro_torch/kernels/_build/);
   3. every kernel against its plain PyTorch version on the card, bit for
@@ -14,7 +14,10 @@ Phases, each of which raises on failure:
      version on the same inputs, synthetic adversarial Refine states at
      the 2^15-bit windows, at every cluster size (1/2/4/8 blocks per
      instance) and at a 2^18-bit modulus's W = 32778, the standalone
-     product at 2^15 and 2^18 bits;
+     product at 2^15 and 2^18 bits; the division's set-up
+     (prologue_kernel) on every checked division, at both benchmark
+     cells' shapes (2^15 bits x 131,072, 2^18 bits x 16,384, with edge
+     lanes) and with h given at a 2^15-bit modulus's Barrett width;
      then the Barrett kernel on adversarial operands at 2^15- and
      2^17-bit moduli (lanes that take each correction branch, counted
      in the plain version) and at the real states of the modular path
@@ -29,20 +32,21 @@ Phases, each of which raises on failure:
      and one 2^16 x 2^16-limb product;
   4. the division path: divmod_batch at 2^15/2^16/2^17/2^18 bits
      (batches 256/128/64/32), every lane checked against Python divmod
-     and on the card as q*v + r == u, with exactly 2*refine_iters(M) + 1
-     fused launches per division and the finalization on clusters of
+     and on the card as q*v + r == u, with exactly 2*refine_iters(M) + 2
+     fused launches per division (the set-up, the Refine steps, the
+     finalization) and the finalization on clusters of
      cluster_size(batch) blocks, then the division service answering
      three requests (one split across buckets);
   4b. a wide division: divmod_batch of 4 lanes at 30,000 limbs under
      cuda_fused (past the ~29,000 limbs the CUDA-core finalization
-     staged), exact against Python, with divmod_launches(30000)
+     staged), exact against Python, with divmod_launches(30000) + 1
      launches;
   4c. the divmod width cap under cuda_fused and cuda_batched, found by
      asking shinv.check_width (the kernel libraries' staging sizes):
      one limb past the cuda_fused cap, divmod_batch and the division
      service's constructor raise ValueError with no launch counted;
   5. the modular-arithmetic path: at 2^15/2^16/2^17-bit moduli the
-     Barrett precompute (30/32/34 launches), reduce_shared and
+     Barrett precompute (31/33/35 launches), reduce_shared and
      modmul_shared on 256/128/64 lanes (1 and 2 launches); at 2^15 bits
      reduce_batch and modmul_batch with 64 per-lane moduli and
      modexp_shared on 64 lanes with 256-bit exponents (674 launches);
@@ -82,7 +86,9 @@ Phases, each of which raises on failure:
      2^18 x 32 cells, with its limb products per second per SM, the
      whole call's busy share, divmod under cuda_pairs against cuda_fused
      in turns, and its library yardstick (also mul_batch's): the float64
-     grouped conv1d of the column sums, checked exact.  ptxas registers
+     grouped conv1d of the column sums, checked exact; prologue_kernel
+     at both benchmark cells' shapes (10 back-to-back launches) against
+     its bytes bound and the ATen set-up's time.  ptxas registers
      and spills go to the report;
   6b. graph against eager: the services' bucket executables (one CUDA
      graph per (op, bucket, impl), serving/batching.py) at the division
@@ -115,7 +121,7 @@ Phases, each of which raises on failure:
   8. the dry run: `repro_torch.launch.bigint_dryrun --limbs 16384
      --insts 8192` builds and replays one 32-row shard of the
      256-shard production layout at 2^18 bits: exact, with
-     divmod_launches(16384) launches, a roofline equal to the sum of
+     divmod_launches(16384) + 1 launches, a roofline equal to the sum of
      its launches' terms (obs/roofline.py over the cost model's work),
      its compile seconds and peak memory; the record goes to
      results/dryrun/bigint_div.json and into the report;
@@ -266,25 +272,32 @@ KERNELS = {
                 "src/repro/kernels/fused.py:486"),
     "mul_pairs": ("src/repro_torch/kernels/csrc/pairs.cu",
                   "src/repro/kernels/bigmul.py:114"),
+    "prologue": ("src/repro_torch/kernels/csrc/prologue.cu",
+                 "none: the JAX package's set-up is jnp glue "
+                 "(src/repro/core/shinv.py)"),
 }
+# the division's set-up at the benchmark cells' shapes (bits, lanes):
+# div15-ahead and div18-ahead
+PROLOGUE_CELLS = ((2 ** 15, 131072), (2 ** 18, 16384))
 GRID_TWINS = {"powdiff": "src/repro/kernels/fused.py:748",
               "update": "src/repro/kernels/fused.py:781",
               "correct": "src/repro/kernels/fused.py:810",
               "barrett": "src/repro/kernels/fused.py:854"}
 # kernels each main path must launch
-PATH_KERNELS = {"division_path": ("mul_batch", "powdiff", "update",
+PATH_KERNELS = {"division_path": ("mul_batch", "prologue", "powdiff",
+                                  "update", "correct"),
+                "wide_division": ("prologue", "powdiff", "update",
                                   "correct"),
-                "wide_division": ("powdiff", "update", "correct"),
-                "modarith_path": ("mul_batch", "powdiff", "update",
-                                  "barrett"),
-                "frontend_path": ("mul_batch", "powdiff", "update",
-                                  "correct", "barrett"),
+                "modarith_path": ("mul_batch", "prologue", "powdiff",
+                                  "update", "barrett"),
+                "frontend_path": ("mul_batch", "prologue", "powdiff",
+                                  "update", "correct", "barrett"),
                 "pairs_path": ("mul_pairs",),
-                "frontend_chaos": ("mul_batch", "powdiff", "update",
-                                   "correct"),
-                "sharded_path": ("mul_batch", "powdiff", "update",
-                                 "correct", "barrett"),
-                "dryrun": ("powdiff", "update", "correct"),
+                "frontend_chaos": ("mul_batch", "prologue", "powdiff",
+                                   "update", "correct"),
+                "sharded_path": ("mul_batch", "prologue", "powdiff",
+                                 "update", "correct", "barrett"),
+                "dryrun": ("prologue", "powdiff", "update", "correct"),
                 "lm_serve": (),
                 "lm_train": (),
                 "lm_dist": ()}
@@ -972,6 +985,7 @@ class Smoke:
             if name == "wide_division":
                 self.phase("width_cap", self.width_cap)
         self.phase("timing", self.timing)
+        self.phase("timing_prologue", self.timing_prologue)
         self.phase("timing_pairs", self.timing_pairs)
         self.phase("timing_modarith", self.timing_modarith)
         self.phase("graphs", self.graphs)
@@ -1029,11 +1043,20 @@ class Smoke:
             rec["correct"] = dict(u=u, v=v, si=si, h=h)
             return got
 
+        def prologue(v, *, h=None, u=None):
+            got = orig_prologue(v, h=h, u=u)
+            self.compare("prologue", self.set_up(got),
+                         self.set_up(self.S.prologue_plain(v, h, u)))
+            return got
+
+        orig_prologue = F.prologue_cuda
         K.fused_step, K.fused_correct = step, correct
+        F.prologue_cuda = prologue
         try:
             yield
         finally:
             K.fused_step, K.fused_correct = orig
+            F.prologue_cuda = orig_prologue
 
     def check_kernels(self):
         torch, F, K = self.torch, self.F, self.K
@@ -1102,9 +1125,67 @@ class Smoke:
             self.check_exact(us, vs, q, r)
             log(f"divmod 2^{bits.bit_length() - 1} bits batch {batch}: "
                 f"kernels == plain on every step, exact")
+        self.check_prologue()
         log(f"kernel-vs-plain comparisons: {self.checked}, max abs err "
             f"{self.err}")
         self.report["checked"] = dict(self.checked)
+
+    def set_up(self, out):
+        """A set-up's outputs (`prologue_cuda`, `prologue_plain`) as a
+        tuple of tensors: the limb arrays, the scalars and the flags."""
+        torch = self.torch
+        return tuple(t for t in out[:4] if t is not None) + (
+            torch.stack(tuple(out[4])), torch.stack(tuple(out[5])))
+
+    def cell_operands(self, m, batch, seed):
+        """Division operands at a benchmark cell's shape, drawn on the
+        card as its traffic draws them (prec(u) = m - 2, prec(v) uniform
+        in [2, m / 2]), with edge lanes first: v = 0, 1, 0xFFFF, B^h / 2
+        (so 2v = B^h, h = prec(u)), B^h / 2 + 1, and u = 0."""
+        torch, dev = self.torch, self.dev
+        g = torch.Generator(device=dev).manual_seed(seed)
+        idx = torch.arange(m, device=dev)
+
+        def draw(prec):
+            x = torch.randint(0, 1 << 16, (batch, m), generator=g,
+                              device=dev, dtype=torch.int32)
+            x = torch.where(idx < prec[:, None], x, 0)
+            top = torch.randint(1, 1 << 16, (batch, 1), generator=g,
+                                device=dev, dtype=torch.int32)
+            return x.scatter_(1, (prec - 1)[:, None].long(), top)
+
+        u = draw(torch.full((batch,), m - 2, device=dev))
+        v = draw(torch.randint(2, m // 2 + 1, (batch,), generator=g,
+                               device=dev))
+        v[:5] = 0
+        v[1, 0], v[2, 0] = 1, 0xFFFF
+        v[3, m - 3], v[4, m - 3], v[4, 0] = 0x8000, 0x8000, 1
+        u[5] = 0
+        return u, v
+
+    def check_prologue(self):
+        """prologue_kernel against the ATen set-up at both benchmark
+        cells' shapes (the divmod entry) and at a 2^15-bit modulus's
+        Barrett width (the precompute's entry, h given), bit for bit."""
+        F, S, torch = self.F, self.S, self.torch
+        for bits, batch in PROLOGUE_CELLS:
+            m = bits // 16
+            u, v = self.cell_operands(m, batch, bits)
+            self.compare("prologue", self.set_up(F.prologue_cuda(v, u=u)),
+                         self.set_up(S.prologue_plain(v, u=u)))
+            log(f"prologue 2^{bits.bit_length() - 1} bits x {batch}: "
+                f"exact")
+            del u, v
+            torch.cuda.empty_cache()
+        m = M15
+        W = self.MA.barrett_width(m)
+        _, v = self.cell_operands(W, 256, 7)
+        h = torch.full((256,), self.MA.barrett_h(m), dtype=torch.int32,
+                       device=self.dev)
+        h[:8] = torch.tensor([0, 1, W - 1, W, W + 3, -1, W // 2, 2])
+        self.compare("prologue", self.set_up(F.prologue_cuda(v, h=h)),
+                     self.set_up(S.prologue_plain(v, h)))
+        log(f"prologue with h given, W {W} x 256: exact")
 
     def synthetic_states(self, full_w, win, batch, seed):
         """Random iterates and Refine scalars with adversarial lanes:
@@ -1152,13 +1233,14 @@ class Smoke:
             torch.cuda.synchronize()
             after = self.build.launch_counts()
             moved = {k: after.get(k, 0) - before.get(k, 0)
-                     for k in ("powdiff", "update", "correct")}
+                     for k in ("prologue", "powdiff", "update", "correct")}
             it = CM.refine_iters(m)
-            if (moved != {"powdiff": it, "update": it, "correct": 1}
-                    or sum(moved.values()) != CM.divmod_launches(m)):
+            want = CM.divmod_launches(m) + CM.prologue_launches()
+            if (moved != {"prologue": 1, "powdiff": it, "update": it,
+                          "correct": 1}
+                    or sum(moved.values()) != want):
                 raise AssertionError(f"2^{bits.bit_length() - 1} bits: "
-                                     f"launches {moved}, expected "
-                                     f"{CM.divmod_launches(m)}")
+                                     f"launches {moved}, expected {want}")
             self.expect(f"correct cluster at 2^{bits.bit_length() - 1} "
                         f"bits", self.D.last_cluster["correct"],
                         self.D.cluster_size(batch, self.sms))
@@ -1194,9 +1276,11 @@ class Smoke:
         dt = time.perf_counter() - t0
         it = self.CM.refine_iters(m)
         self.expect(f"divmod {m} limbs launches", got,
-                    {"powdiff": it, "update": it, "correct": 1})
+                    {"prologue": 1, "powdiff": it, "update": it,
+                     "correct": 1})
         self.expect(f"divmod {m} limbs launch total", sum(got.values()),
-                    self.CM.divmod_launches(m))
+                    self.CM.divmod_launches(m)
+                    + self.CM.prologue_launches())
         want = host_map(_divmod, zip(us, vs))
         if list(zip(self.bi.batch_to_ints(q),
                     self.bi.batch_to_ints(r))) != want:
@@ -1402,6 +1486,40 @@ class Smoke:
                                    for b, d in self.correct_cells.items()}
         self.report["timing"] = rows
         self.agg = agg
+
+    def timing_prologue(self):
+        """prologue_kernel at both benchmark cells' shapes: CUDA-event
+        time of back-to-back launches against its bytes bound (u and v
+        read, uw, vw, vl and w written, the scalars and flags), and the
+        ATen set-up's time at the same shape."""
+        F, S, torch = self.F, self.S, self.torch
+        cells = {}
+        for bits, batch in PROLOGUE_CELLS:
+            m = bits // 16
+            W = m + S.PAD
+            u, v = self.cell_operands(m, batch, bits + 1)
+            fn = lambda: F.prologue_cuda(v, u=u)
+            ms = self.burst_ms(fn, n=10)
+            plain_ms = self.time_ms(lambda: S.prologue_plain(v, u=u), runs=3)
+            nbytes = batch * ((2 * m + 4 * W) * 4 + 5 * 4 + 3)
+            bound_ms = self.bound(0, nbytes)[0]
+            cells[f"2^{bits.bit_length() - 1}"] = dict(
+                shape=f"2^{bits.bit_length() - 1} bits x {batch}", ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes,
+                roofline=bound_ms / ms)
+            pt = self.report["ptxas"].get("prologue_kernel", {})
+            log(f"prologue 2^{bits.bit_length() - 1} bits x {batch}: "
+                f"{ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, "
+                f"{100 * bound_ms / ms:.1f}%), ATen set-up "
+                f"{plain_ms:.3f} ms, ptxas {pt}")
+            del u, v, fn
+            torch.cuda.empty_cache()
+        c = cells["2^15"]
+        self.agg["prologue"] = dict(
+            event_ms=c["ms"], device_ms=None, plain_ms=c["plain_ms"],
+            products=0, bytes=c["bytes"], launches=1,
+            ms_source="cuda_events", shape=c["shape"], cells=cells)
+        self.report["prologue"] = dict(card=card_line(), cells=cells)
 
     def step_work(self, st):
         """(products, bytes) of one powdiff and one update launch on these
@@ -1661,9 +1779,9 @@ class Smoke:
             tag = f"2^{bits.bit_length() - 1}-bit modulus"
             L = mod_operands(m, batch, bits)
             vt = self.tensor([L["v"]], m)[0]
-            ctx, n = self.launched(lambda: MA.barrett_precompute(vt))
-            self.expect(f"{tag} precompute launches", n,
-                        CM.precompute_launches(m))
+            ctx, pre = self.launched(lambda: MA.barrett_precompute(vt))
+            self.expect(f"{tag} precompute launches", pre,
+                        CM.precompute_launches(m) + CM.prologue_launches())
             mu = self.bi.to_int(self.bi.limbs_to_numpy(ctx.mu))
             if mu - B ** MA.barrett_h(m) // L["v"] not in (0, 1):
                 raise AssertionError(f"{tag}: mu is not shinv + lambda")
@@ -1678,7 +1796,7 @@ class Smoke:
             if ints(p) != [aa * bb % L["v"] for aa, bb in zip(L["a"],
                                                                L["b"])]:
                 raise AssertionError(f"{tag}: modmul_shared inexact")
-            log(f"{tag}: precompute {CM.precompute_launches(m)} launches, "
+            log(f"{tag}: precompute {pre} launches, "
                 f"reduce_shared and modmul_shared on {batch} lanes "
                 f"(1 and 2 launches), every lane exact")
             self.mod_inputs[bits] = dict(L=L, vt=vt, ctx=ctx, x=x, a=a, b=b)
@@ -1687,12 +1805,14 @@ class Smoke:
             vl = self.tensor(L["vs"][:64], m)
             r, n = self.launched(lambda: MA.reduce_batch(x[:64], vl))
             self.expect(f"{tag} reduce_batch launches", n,
-                        CM.precompute_launches(m) + CM.barrett_launches())
+                        CM.precompute_launches(m) + CM.prologue_launches()
+                        + CM.barrett_launches())
             if ints(r) != [xx % vv for xx, vv in zip(L["x"], L["vs"][:64])]:
                 raise AssertionError(f"{tag}: reduce_batch inexact")
             p, n = self.launched(lambda: MA.modmul_batch(a[:64], b[:64], vl))
             self.expect(f"{tag} modmul_batch launches", n,
-                        CM.precompute_launches(m) + CM.modmul_launches())
+                        CM.precompute_launches(m) + CM.prologue_launches()
+                        + CM.modmul_launches())
             if ints(p) != [aa * bb % vv for aa, bb, vv in zip(
                     L["a"], L["b"], L["vs"][:64])]:
                 raise AssertionError(f"{tag}: modmul_batch inexact")
@@ -1724,7 +1844,8 @@ class Smoke:
         vt = self.tensor([L["v"]], m)[0]
         ctx, k = self.launched(lambda: MA.barrett_precompute(vt))
         self.expect(f"{tag} precompute launches", k,
-                    CM.precompute_launches(m))
+                    CM.precompute_launches(m) + CM.prologue_launches())
+        pre = k
         mu = self.bi.to_int(self.bi.limbs_to_numpy(ctx.mu))
         if mu - B ** MA.barrett_h(m) // L["v"] not in (0, 1):
             raise AssertionError(f"{tag}: mu is not shinv + lambda")
@@ -1739,7 +1860,7 @@ class Smoke:
         if ints(p) != [aa * bb % L["v"] for aa, bb in zip(L["a"][:n],
                                                           L["b"][:n])]:
             raise AssertionError(f"{tag}: modmul_shared inexact")
-        log(f"{tag}: precompute {CM.precompute_launches(m)} launches, "
+        log(f"{tag}: precompute {pre} launches, "
             f"reduce_shared and modmul_shared on {n} lanes (1 and 2 "
             f"launches), every lane exact")
         self.mod_inputs[2 ** 18] = dict(L=L, vt=vt, ctx=ctx, x=x, a=a, b=b)
@@ -2024,7 +2145,8 @@ class Smoke:
             rows.append(self.graph_vs_eager(
                 what, exe, info, (u, v),
                 lambda: S.divmod_batch(u, v, impl=impl),
-                CM.divmod_launches(m, impl), plain=lambda: plain[bits],
+                CM.divmod_launches(m, impl) + CM.prologue_launches(impl),
+                plain=lambda: plain[bits],
                 runs=5 if impl == "cuda_fused" else 3))
             services.append(svc)
             if impl != "cuda_fused":
@@ -2050,7 +2172,7 @@ class Smoke:
             cases = (
                 ("precompute", svc._precompute_fn, (mi["vt"],),
                  lambda impl=None: MA.barrett_precompute(mi["vt"], impl),
-                 CM.precompute_launches(m), batch),
+                 CM.precompute_launches(m) + CM.prologue_launches(), batch),
                 ("reduce", lambda: svc._fn("reduce", batch), (*ctx, x),
                  lambda impl=None: MA.reduce_shared(ctx, x, impl),
                  CM.barrett_launches(), batch),
@@ -2644,7 +2766,8 @@ class Smoke:
             got, k = self.launched(lambda: div.divide(us, vs))
             chunks = len(div.batcher.plan(rows))
             self.expect(f"sharded divmod launches ({rows} rows)", k,
-                        n * chunks * CM.divmod_launches(M18))
+                        n * chunks * (CM.divmod_launches(M18)
+                                      + CM.prologue_launches()))
             if list(zip(*got)) != host_map(_divmod, zip(us, vs)):
                 raise AssertionError("sharded divmod inexact")
             if got != one.divide(us, vs):
@@ -2652,7 +2775,8 @@ class Smoke:
                                      "unsharded service")
             log(f"sharded division 2^18 bits, {rows} rows in {chunks} "
                 f"chunk(s) over {n} shards: {k} launches "
-                f"({n} x {chunks} x {CM.divmod_launches(M18)}), exact, "
+                f"({n} x {chunks} x "
+                f"{CM.divmod_launches(M18) + CM.prologue_launches()}), exact, "
                 f"equal to unsharded")
         m = M15
         kw = dict(e_limbs=E_LIMBS, batch_buckets=(64, 256))
@@ -2681,8 +2805,8 @@ class Smoke:
             for op in SHARD_MOD_ROWS:
                 got, k = self.launched(
                     lambda: getattr(mod, op)(*cols[v][op], v))
-                pre = CM.precompute_launches(m) if i < 2 and \
-                    op == "reduce" else 0
+                pre = CM.precompute_launches(m) + CM.prologue_launches() \
+                    if i < 2 and op == "reduce" else 0
                 self.expect(f"sharded {op} launches", k,
                             n * model[op] + pre)
                 if got != want[v][op]:
@@ -2778,7 +2902,7 @@ class Smoke:
         if not rec["exact"] or rec["status"] != "ok":
             raise AssertionError("dry run inexact")
         self.expect("dry run launches", rec["launches"]["per_shard"],
-                    CM.divmod_launches(M18))
+                    CM.divmod_launches(M18) + CM.prologue_launches())
         self.expect("dry run shard rows", rec["rows_per_shard"],
                     DRYRUN_INSTS // 256)
         work = CM.divmod_work(M18, rec["rows_per_shard"])

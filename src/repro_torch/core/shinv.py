@@ -6,12 +6,14 @@ every per-instance scalar (h, k, hk, need, l, m, s, active) is a
 (batch,) tensor on the operands' device.  The Refine loop has the same
 static trip count `refine_iters(M)` and the same static window per
 iteration as the JAX code, so nothing in it reads a value back to the
-host: each iteration is one `kernels.ops.fused_step` and the
-finalization one `fused_correct`.  Under the default impl cuda_fused
-that is two kernel launches per iteration and one for the finalization
-on CUDA, 2 * refine_iters + 1 per batched division; `impl` picks
-another rung of the registry (`kernels/ops.py`) with the same result
-bit for bit.
+host: the set-up is one `prologue` launch, each iteration one
+`kernels.ops.fused_step` and the finalization one `fused_correct`.
+Under the default impl cuda_fused that is one set-up launch, two kernel
+launches per iteration and one for the finalization on CUDA,
+2 * refine_iters + 2 per batched division; the other impls and the CPU
+run the set-up in torch ops (`prologue_plain`).  `impl` picks another
+rung of the registry (`kernels/ops.py`) with the same result bit for
+bit.
 
 Spans (`obs/telemetry.py:scope`): `divmod_batch` opens `divmod` over
 the whole call, and inside it `divmod/prologue` (the operands' pad,
@@ -70,6 +72,55 @@ def _initial_w0(V: torch.Tensor):
             (q1 >> LOG_BASE).to(DTYPE))
 
 
+def prologue_plain(v: torch.Tensor, h: torch.Tensor | None = None,
+                   u: torch.Tensor | None = None):
+    """The division's set-up in torch ops: the plain version of
+    `kernels/fused.py:prologue_cuda`, which the CPU and every impl but
+    cuda_fused run.  With u: u and v (batch, M) limbs, padded to W = M +
+    PAD, and h = prec(u); without: v (batch, W) as it is and the given h
+    (batch,).
+
+    Returns (uw, vw, vl, w, scal, flags): uw the padded u (None without
+    u), vw the padded v (v itself without u), vl the lifted v, w the
+    first iterate, scal the (batch,) int32 (h, k, hk, need, l) and
+    flags the (batch,) bool (case_zero, case_one, case_pow)."""
+    uw = None
+    if u is not None:
+        pad = (0, PAD)
+        uw = torch.nn.functional.pad(u.to(DTYPE), pad).contiguous()
+        v = torch.nn.functional.pad(v.to(DTYPE), pad).contiguous()
+        h = A.prec(uw)
+    h = h.to(device=v.device, dtype=DTYPE)
+    vw, h_in = v, h
+
+    # lift single-limb v: floor(B^(h+1) / vB) == floor(B^h / v)
+    small = A.prec(v) <= 1
+    v = torch.where(small[:, None], A.shift(v, 1), v)
+    h = h + small.to(DTYPE)
+    k = A.prec(v) - 1
+
+    # special cases (leave B < v <= B^h / 2 for the general path)
+    two_v = A.add(v, v)
+    case_zero = A.gt_pow(v, h)                        # v >  B^h -> 0
+    case_one = A.gt_pow(two_v, h) & ~case_zero        # 2v > B^h -> 1
+    case_pow = A.is_pow(v)                            # v == B^k
+
+    # initial approximation from the two most significant limbs
+    V = (A.take_limb(v, k - 1).to(torch.int64)
+         + (A.take_limb(v, k).to(torch.int64) << LOG_BASE))
+    w0 = torch.zeros_like(v)
+    w0[:, 0], w0[:, 1], w0[:, 2] = _initial_w0(V)
+
+    # the refinement's set-up
+    l = torch.full_like(h, 2)
+    w = A.shift(w0, GUARD)
+    hk = h - k
+    need = torch.where(hk - 1 >= 2, A.ceil_log2(torch.clamp(hk - 1, min=1)),
+                       0) + 2
+    return (uw, vw, v, w, (h_in, k, hk, need, l),
+            (case_zero, case_one, case_pow))
+
+
 class _Inverse:
     """shinv_h(v) + lambda, lambda in {0, 1} (Theorem 2), per row, in
     the three stretches of device work that a division's spans name:
@@ -77,38 +128,25 @@ class _Inverse:
     cases, the initial approximation and the refinement's set-up),
     `refine` (the guarded shorter-iterate/divisor-prefix loop) and
     `select` (the final shift and the special cases' answers).  v:
-    (batch, W) limbs, h: (batch,) int32."""
+    (batch, W) limbs, h: (batch,) int32; or, for a division, u and v
+    (batch, M) limbs and h None, which the set-up pads to W (`u`,
+    `v_in`) with h = prec(u) (`h_in`).  The set-up is one `prologue`
+    launch under cuda_fused on CUDA (`kernels/fused.py:prologue_cuda`),
+    else `prologue_plain`."""
 
-    def __init__(self, v: torch.Tensor, h: torch.Tensor):
-        self.width = v.shape[-1]
-        h = h.to(device=v.device, dtype=DTYPE)
-        self.v_in, self.h_in = v, h
-
-        # lift single-limb v: floor(B^(h+1) / vB) == floor(B^h / v)
-        small = A.prec(v) <= 1
-        v = self.v = torch.where(small[:, None], A.shift(v, 1), v)
-        h = h + small.to(DTYPE)
-        k = self.k = A.prec(v) - 1
-
-        # special cases (leave B < v <= B^h / 2 for the general path)
-        two_v = A.add(v, v)
-        self.case_zero = A.gt_pow(v, h)                     # v >  B^h -> 0
-        self.case_one = A.gt_pow(two_v, h) & ~self.case_zero  # 2v > B^h -> 1
-        self.case_pow = A.is_pow(v)                          # v == B^k
-
-        # initial approximation from the two most significant limbs
-        V = (A.take_limb(v, k - 1).to(torch.int64)
-             + (A.take_limb(v, k).to(torch.int64) << LOG_BASE))
-        w0 = torch.zeros_like(v)
-        w0[:, 0], w0[:, 1], w0[:, 2] = _initial_w0(V)
-
-        # the refinement's set-up
-        self.l = torch.full_like(h, 2)
-        self.w = A.shift(w0, GUARD)
-        self.hk = h - k
-        self.need = torch.where(
-            self.hk - 1 >= 2, A.ceil_log2(torch.clamp(self.hk - 1, min=1)),
-            0) + 2
+    def __init__(self, v: torch.Tensor, h: torch.Tensor | None,
+                 impl: str | None = None, u: torch.Tensor | None = None):
+        if K._fused(impl, *((v,) if u is None else (u, v))):
+            from repro_torch.kernels import fused as F
+            got = F.prologue_cuda(
+                v.to(DTYPE).contiguous(), h=h,
+                u=None if u is None else u.to(DTYPE).contiguous())
+        else:
+            got = prologue_plain(v, h, u)
+        self.u, self.v_in, self.v, self.w, scal, flags = got
+        self.h_in, self.k, self.hk, self.need, self.l = scal
+        self.case_zero, self.case_one, self.case_pow = flags
+        self.width = self.v.shape[-1]
 
     def refine(self, iters_max: int, windowed: bool = True,
                impl: str | None = None) -> None:
@@ -147,7 +185,7 @@ def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
                 impl: str | None = None) -> torch.Tensor:
     """shinv_h(v) + lambda, lambda in {0, 1} (Theorem 2), per row.
     v: (batch, W) limbs, h: (batch,) int32.  Rows with v = 0 give 0."""
-    inv = _Inverse(v, h)
+    inv = _Inverse(v, h, impl)
     inv.refine(iters_max, windowed, impl)
     return inv.select()
 
@@ -174,25 +212,22 @@ def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True,
                  impl: str | None = None):
     """Batched division (q, r) with u = q * v + r, 0 <= r < v; u, v:
     (batch, M) int32 limbs on one device, which the computation follows
-    (CUDA: `costmodel.divmod_launches(M, impl)` kernel launches,
-    2 * refine_iters(M) + 1 under cuda_fused, after `check_width`).
+    (CUDA: `costmodel.divmod_launches(M, impl)` +
+    `costmodel.prologue_launches(impl)` kernel launches, 2 *
+    refine_iters(M) + 2 under cuda_fused, after `check_width`).
     divmod(u, 0) = (0, u)."""
     if u.shape != v.shape or u.ndim != 2:
         raise ValueError(f"expected equal (batch, M) operands, got "
                          f"{tuple(u.shape)} and {tuple(v.shape)}")
     m_limbs = u.shape[1]
     check_width(u.device, m_limbs, impl)
-    pad = (0, PAD)
     with T.scope("divmod"):
         with T.scope("divmod/prologue"):
-            uw = torch.nn.functional.pad(u.to(DTYPE), pad).contiguous()
-            vw = torch.nn.functional.pad(v.to(DTYPE), pad).contiguous()
-            h = A.prec(uw)
-            inv = _Inverse(vw, h)
+            inv = _Inverse(v, None, impl, u=u)
         inv.refine(refine_iters(m_limbs), windowed, impl)
         with T.scope("divmod/epilogue"):
             si = inv.select()
-        q, r = K.fused_correct(uw, vw, si, h=h, impl=impl)
+        q, r = K.fused_correct(inv.u, inv.v_in, si, h=inv.h_in, impl=impl)
     return q[:, :m_limbs], r[:, :m_limbs]
 
 

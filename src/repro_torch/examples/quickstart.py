@@ -46,8 +46,8 @@ def main(argv=None) -> None:
     print(f"work in units of one full MxM product: "
           f"{c.full_mult_equivalents(M):.2f}")
     print(f"kernel launches of one batched divmod on the card: "
-          f"{CM.divmod_launches(M)} (2 x {CM.refine_iters(M)} Refine "
-          f"iterations + 1)")
+          f"{CM.divmod_launches(M) + CM.prologue_launches()} (1 set-up + "
+          f"2 x {CM.refine_iters(M)} Refine iterations + 1)")
 
 
 if __name__ == "__main__":

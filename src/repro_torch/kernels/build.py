@@ -36,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("mul", "step", "correct", "barrett", "pairs", "marks")
+SOURCES = ("mul", "step", "correct", "barrett", "pairs", "marks",
+           "prologue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -155,6 +156,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "mul_pairs_tile": [],
         "span_mark_launch": [P, I, P],
         "span_capture_tail": [P, P],
+        "prologue_launch": [P, P, P, P, P, P, P, P, P, I, I, I, P],
     }
     for fn, args in sigs.items():
         if hasattr(lib, fn):

@@ -2,12 +2,15 @@
 
 One Refine iteration is two kernel launches, the divmod finalization
 one and a Barrett reduction one, as in the JAX package
-(`repro/kernels/fused.py`):
+(`repro/kernels/fused.py`); the division's set-up one more:
 
-  powdiff   csrc/step.cu    replaces _powdiff_kernel, _powdiff_grid_kernel
-  update    csrc/step.cu    replaces _update_kernel, _update_grid_kernel
-  correct   csrc/correct.cu replaces _correct_kernel, _correct_grid_kernel
-  barrett   csrc/barrett.cu replaces _barrett_kernel, _barrett_grid_kernel
+  powdiff   csrc/step.cu     replaces _powdiff_kernel, _powdiff_grid_kernel
+  update    csrc/step.cu     replaces _update_kernel, _update_grid_kernel
+  correct   csrc/correct.cu  replaces _correct_kernel, _correct_grid_kernel
+  barrett   csrc/barrett.cu  replaces _barrett_kernel, _barrett_grid_kernel
+  prologue  csrc/prologue.cu replaces no TPU kernel (JAX's set-up is jnp
+                             glue); its plain version is
+                             `core/shinv.py:prologue_plain`
 
 The TPU's two kernel generations computed the same functions (they
 differed only in how the product fit VMEM); on Hopper one kernel per
@@ -38,6 +41,7 @@ from repro_torch.core.bigint import DTYPE, one_hot_pow
 from . import build, digitmma as D
 from .build import check_limbs
 from .ops import mul_plain
+from repro_torch.obs.costmodel import PAD
 
 
 def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -338,3 +342,46 @@ def barrett_cuda(x, mu, v, *, h: int):
         build.count("barrett")
         D.last_cluster["barrett"] = cluster.value
     return r
+
+
+def prologue_cuda(v, *, h=None, u=None):
+    """Kernel of `core/shinv.py:prologue_plain`, the division's set-up, in
+    one launch: with u, u and v (batch, M) limbs padded to W = M + PAD
+    and h = prec(u); else v (batch, W) with the given h (batch,).  The
+    same (uw, vw, vl, w, scal, flags): scal a (5, batch) int32 tensor of
+    the rows (h, k, hk, need, l), flags a (3, batch) bool one of
+    (case_zero, case_one, case_pow)."""
+    if v.ndim != 2:
+        raise ValueError(f"expected (batch, M) limbs, got {tuple(v.shape)}")
+    batch, in_w = v.shape
+    div = u is not None
+    if not div and h is None:
+        raise ValueError("the set-up needs u or h")
+    check_limbs("v", v)
+    if div:
+        width = in_w + PAD
+        check_limbs("u", u, (batch, in_w))
+    else:
+        width = in_w
+        h = h.to(device=v.device, dtype=torch.int32).reshape(-1).contiguous()
+        check_limbs("h", h, (batch,))
+    if width < 5:
+        raise ValueError(f"a {width}-limb working width is below 5")
+    vl = torch.empty(batch, width, dtype=torch.int32, device=v.device)
+    w = torch.empty_like(vl)
+    uw = torch.empty_like(vl) if div else None
+    vw = torch.empty_like(vl) if div else v
+    scal = torch.empty(5, batch, dtype=torch.int32, device=v.device)
+    flags = torch.empty(3, batch, dtype=torch.bool, device=v.device)
+    if batch:
+        with build.on_device(v) as stream:
+            err = build.lib("prologue").prologue_launch(
+                u.data_ptr() if div else None, v.data_ptr(),
+                None if div else h.data_ptr(),
+                uw.data_ptr() if div else None,
+                vw.data_ptr() if div else None, vl.data_ptr(), w.data_ptr(),
+                scal.data_ptr(), flags.data_ptr(), batch, in_w, width,
+                stream)
+        build.check(err, "prologue kernel")
+        build.count("prologue")
+    return uw, vw, vl, w, scal, flags

@@ -24,7 +24,8 @@ keys:
                   full window) over the H100's peaks (`obs/roofline.py`)
 
 and the port's: the shard count and rows, `launches` (the replay's,
-per shard, beside `costmodel.divmod_launches`), whether every row's
+per shard, beside `costmodel.divmod_launches` and the set-up's
+`prologue_launches`), whether every row's
 answer equals Python's divmod (`exact`), the replay's time and the
 device.  The default output is JAX's, under `results/`, which git
 ignores.
@@ -117,6 +118,7 @@ def run(limbs: int, insts: int, *, multi_pod: bool = False,
                    if device.type == "cuda" else "cpu"),
         "launches": {"per_shard": sum(rec.values()),
                      "model": CM.divmod_launches(limbs, impl),
+                     "prologue": CM.prologue_launches(impl),
                      "by_kernel": dict(rec)},
         "launch_work": [list(w) for w in work],
         "exact": exact,

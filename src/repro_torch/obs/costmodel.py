@@ -23,6 +23,7 @@ import math
 FUSED_STEP_LAUNCHES = 2        # powdiff launch + update launch
 FUSED_CORRECT_LAUNCHES = 1     # divmod finalization
 FUSED_BARRETT_LAUNCHES = 1     # Barrett reduction core
+PROLOGUE_LAUNCHES = 1          # a division's or precompute's set-up
 MUL_LAUNCHES = 1               # one batched full product
 # Full-width torch ops in the unfused step composition (the JAX
 # package's count of its XLA glue ops, `repro/obs/costmodel.py`).
@@ -113,11 +114,22 @@ def mul_launches(impl: str = "cuda_fused") -> int:
     return MUL_LAUNCHES if impl in KERNEL_PRODUCTS else 0
 
 
+def prologue_launches(impl: str = "cuda_fused") -> int:
+    """Kernel launches of a division's or a precompute's set-up (the pads,
+    prec(u), the lift, the special cases and the initial approximation,
+    `core/shinv.py:_Inverse`): one `prologue` launch under cuda_fused,
+    torch ops under every other impl.  The JAX package has no such
+    launch (its set-up is jnp glue), so it is counted apart from
+    `divmod_launches` and `precompute_launches`."""
+    return PROLOGUE_LAUNCHES if impl == "cuda_fused" else 0
+
+
 def divmod_launches(m_limbs: int, impl: str = "cuda_fused") -> int:
-    """Kernel launches of one batched divmod at M limbs: under
-    cuda_fused two per Refine iteration plus one finalization; under an
-    unfused kernel impl two products per iteration plus the
-    finalization's two (u * shinv, v * q)."""
+    """Kernel launches of one batched divmod at M limbs in the Refine
+    loop and the finalization: under cuda_fused two per Refine iteration
+    plus one finalization; under an unfused kernel impl two products per
+    iteration plus the finalization's two (u * shinv, v * q).  The
+    set-up adds `prologue_launches(impl)`."""
     it = refine_iters(m_limbs)
     if impl == "cuda_fused":
         return FUSED_STEP_LAUNCHES * it + FUSED_CORRECT_LAUNCHES
@@ -132,10 +144,10 @@ def precompute_iters(m_limbs: int) -> int:
 
 
 def precompute_launches(m_limbs: int, impl: str = "cuda_fused") -> int:
-    """Kernel launches of one Barrett precompute (a shinv, no
-    finalization): 30/32/34 at m = 2048/4096/8192 under cuda_fused, and
-    as many under cuda_batched and cuda_pairs (two products per
-    iteration)."""
+    """Kernel launches of one Barrett precompute's Refine loop (a shinv,
+    no finalization): 30/32/34 at m = 2048/4096/8192 under cuda_fused,
+    and as many under cuda_batched and cuda_pairs (two products per
+    iteration).  The set-up adds `prologue_launches(impl)`."""
     return step_launches(impl) * precompute_iters(m_limbs)
 
 
@@ -307,10 +319,12 @@ def barrett_work(batch: int, m_limbs: int, lanes=None, nmu=None,
 def divmod_work(m_limbs: int, batch: int, impl: str = "cuda_fused",
                 windowed: bool = True) -> list[tuple]:
     """[(kernel, products, bytes)] per launch of one batched M-limb
-    divmod under impl, every operand at its full window: per Refine
-    iteration powdiff and update (cuda_fused) or the two window
-    products, then the finalization (one launch, or u * shinv and
-    q * v).  Empty for blocked."""
+    divmod's Refine loop and finalization under impl, every operand at
+    its full window: per Refine iteration powdiff and update
+    (cuda_fused) or the two window products, then the finalization (one
+    launch, or u * shinv and q * v).  Empty for blocked.  The set-up's
+    `prologue_launches(impl)` launch moves bytes only and is not
+    listed."""
     W = div_width(m_limbs)
     out = []
     for i in range(refine_iters(m_limbs)):

@@ -6,11 +6,13 @@ port of `repro/obs/report.py`, stdlib-only like it.
     row per (bucket, op), with the launches MEASURED when the bucket's
     executable was built (`utils/launch_stats.py:trace_profile`) beside
     the cost model's prediction (`obs/costmodel.py`) and a match
-    verdict.  The port's rows also carry the device; on the CPU nothing
-    launches, so the model is None there and the row never fails the
-    match.  modexp rows have a model (16 * e_limbs exponent bits at the
-    service's window), where the JAX package's have None, and the
-    modular service's precompute has a row of its own.
+    verdict.  The port's rows also carry the device and the set-up's
+    launch of a divmod or precompute (`prologue_launches`, which the
+    match adds to the model's); on the CPU nothing launches, so the
+    model is None there and the row never fails the match.  modexp
+    rows have a model (16 * e_limbs exponent bits at the service's
+    window), where the JAX package's have None, and the modular
+    service's precompute has a row of its own.
   * `merge_json` + `BENCH_KEY`: the deterministic keyed merge of the
     repo's BENCH_*.json rows, copied as it is.  `BENCH_REQUIRED` waits
     for the port's own benchmark files.
@@ -84,12 +86,15 @@ def render_table(rows: list[dict], columns: list[str] | None = None,
 def _row(snapshot: dict, bucket: int, op: str, st: dict) -> dict:
     m, impl = snapshot["m_limbs"], snapshot["impl"]
     device = snapshot.get("device", "cuda")
-    model = None
+    model = prologue = None
     if device == "cuda":
         e_limbs = snapshot.get("e_limbs")
         model = CM.model_launches(
             op, m, impl, e_bits=16 * e_limbs if e_limbs else None,
             window_bits=snapshot.get("window_bits", 4))
+        # the set-up's launch, which the JAX package's model has not
+        prologue = CM.prologue_launches(impl) \
+            if op in ("divmod", "precompute") else 0
     measured = st["kernel_launches"]
     iters = {"divmod": CM.refine_iters,
              "precompute": CM.precompute_iters}.get(op)
@@ -105,9 +110,10 @@ def _row(snapshot: dict, bucket: int, op: str, st: dict) -> dict:
         "shards": st.get("shards", 1),
         "measured_launches": measured,
         "model_launches": model,
+        "prologue_launches": prologue,
         "glue_ops": st["glue_ops"],
         "total_ops": st["total_ops"],
-        "match": (model is None) or (measured == model),
+        "match": (model is None) or (measured == model + prologue),
     }
 
 
@@ -138,7 +144,8 @@ def render_measured_vs_model(snapshot: dict) -> str:
              f"cost model")
     return render_table(rows, columns=[
         "bucket", "op", "device", "shards", "iters", "measured_launches",
-        "model_launches", "glue_ops", "match"], title=title)
+        "model_launches", "prologue_launches", "glue_ops", "match"],
+        title=title)
 
 
 # ---------------------------------------------------------------------------

@@ -233,7 +233,7 @@ def test_correct_kernel_2p18(dev):
 def test_divmod_past_the_old_finalization_cap(dev):
     """A 30,000-limb division under cuda_fused, past the ~29,000 limbs
     the CUDA-core finalization staged: exact against Python, with
-    costmodel.divmod_launches(30000) launches."""
+    costmodel.divmod_launches(30000) + prologue_launches() launches."""
     m = 30000
     rnd = random.Random(m)
     us = [B ** m - 1, rnd.getrandbits(16 * m), rnd.getrandbits(16 * m)]
@@ -244,9 +244,10 @@ def test_divmod_past_the_old_finalization_cap(dev):
     q, r = S.divmod_batch(_t(us, m, dev), _t(vs, m, dev))
     torch.cuda.synchronize()
     it = CM.refine_iters(m)
-    assert build.launch_counts() == {"powdiff": it, "update": it,
-                                     "correct": 1}
-    assert sum(build.launch_counts().values()) == CM.divmod_launches(m)
+    assert build.launch_counts() == {"prologue": 1, "powdiff": it,
+                                     "update": it, "correct": 1}
+    assert sum(build.launch_counts().values()) == \
+        CM.divmod_launches(m) + CM.prologue_launches()
     for x, y, qq, rr in zip(us, vs, bi.batch_to_ints(q),
                             bi.batch_to_ints(r)):
         assert (qq, rr) == divmod(x, y)
@@ -267,7 +268,8 @@ def test_divmod_width_cap(dev):
     build.reset_launch_counts()
     q, r = S.divmod_batch(_t(us, cap, dev), _t(vs, cap, dev))
     torch.cuda.synchronize()
-    assert sum(build.launch_counts().values()) == CM.divmod_launches(cap)
+    assert sum(build.launch_counts().values()) == \
+        CM.divmod_launches(cap) + CM.prologue_launches()
     assert list(zip(bi.batch_to_ints(q), bi.batch_to_ints(r))) == [
         divmod(us[0], vs[0]), (0, us[1])]
     build.reset_launch_counts()
@@ -299,9 +301,10 @@ def test_divmod_on_card_exact_with_launch_count(dev, m):
     q, r = S.divmod_batch(_t(us, m, dev), _t(vs, m, dev))
     torch.cuda.synchronize()
     counts = build.launch_counts()
-    assert counts == {"powdiff": CM.refine_iters(m),
+    assert counts == {"prologue": 1, "powdiff": CM.refine_iters(m),
                       "update": CM.refine_iters(m), "correct": 1}
-    assert sum(counts.values()) == CM.divmod_launches(m)
+    assert sum(counts.values()) == \
+        CM.divmod_launches(m) + CM.prologue_launches()
     for x, y, qq, rr in zip(us, vs, bi.batch_to_ints(q),
                             bi.batch_to_ints(r)):
         assert (qq, rr) == (divmod(x, y) if y else (0, x))
@@ -309,6 +312,79 @@ def test_divmod_on_card_exact_with_launch_count(dev, m):
         bi.limbs_to_numpy(q),
         bi.limbs_to_numpy(S.divmod_batch(_t(us, m, "cpu"),
                                          _t(vs, m, "cpu"))[0]))
+
+
+# -- the division's set-up (csrc/prologue.cu) ------------------------------
+
+def _same(got, want):
+    """Every output of the set-up equal, dtype and bits: the four limb
+    arrays (uw None for the entry with h given), then each (batch,) row
+    of the scalars and of the flags."""
+    for g, w in zip(got[:4], want[:4]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    for gs, ws in zip(got[4:], want[4:]):
+        assert len(gs) == len(ws)
+        for g, w in zip(gs, ws):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [27, 2046, 2048, 16384])
+def test_prologue_kernel_matches_plain_divmod_entry(dev, m):
+    """u and v given: the kernel's pads, h = prec(u), lifted v, first
+    iterate, scalars and special cases bit for bit with the ATen set-up
+    on the edge lanes (v = 0, 1, single limbs, B^k, B^h / 2 and around
+    it, B^h, a top limb 0xFFFF, u = 0), at the cells' W = 2,056 and
+    16,392, an odd W = 35 and W = 2,054 (8-byte accesses), 37 lanes."""
+    from _prologue_lanes import divmod_lanes
+    lanes = divmod_lanes(m, seed=m)
+    u = _t([a for a, _ in lanes], m, dev)
+    v = _t([b for _, b in lanes], m, dev)
+    build.build_all()
+    build.reset_launch_counts()
+    got = F.prologue_cuda(v, u=u)
+    torch.cuda.synchronize()
+    assert build.launch_counts() == {"prologue": 1}
+    assert got[0].shape == (len(lanes), m + S.PAD)
+    _same(got, S.prologue_plain(v, u=u))
+
+
+@pytest.mark.parametrize("width", [35, 2056, 4106, 16392])
+def test_prologue_kernel_matches_plain_shinv_entry(dev, width):
+    """h given and v already W wide (`shinv_batch`, the Barrett
+    precompute's entry; 4,106 is a 2^15-bit modulus's Barrett width):
+    h = 0, in range, at and past the width and negative, v with top
+    bits that 2v mod B^W drops, bit for bit with the ATen set-up."""
+    from _prologue_lanes import shinv_lanes
+    lanes = shinv_lanes(width, seed=width)
+    v = _t([a for a, _ in lanes], width, dev)
+    h = torch.tensor([b for _, b in lanes], dtype=torch.int32, device=dev)
+    build.build_all()
+    got = F.prologue_cuda(v, h=h)
+    torch.cuda.synchronize()
+    assert got[0] is None and got[1] is v
+    _same(got, S.prologue_plain(v, h))
+
+
+@pytest.mark.parametrize("m", [27, 2048, 16384])
+def test_divmod_graph_exact_on_prologue_lanes(dev, m):
+    """divmod_batch through a bucket executable on the set-up's edge
+    lanes: every lane against Python divmod (divmod(u, 0) = (0, u))."""
+    from functools import partial
+    from _prologue_lanes import divmod_lanes
+    lanes = divmod_lanes(m, seed=m + 1)
+    u = _t([a for a, _ in lanes], m, dev)
+    v = _t([b for _, b in lanes], m, dev)
+    fu = torch.zeros_like(u)
+    fv = fu.clone()
+    fv[:, 0] = 1
+    exe = _graph(partial(S.divmod_batch, impl="cuda_fused"), (fu, fv),
+                 "cuda_fused")
+    assert exe.launches["prologue"] == 1
+    q, r = exe(u, v)
+    assert list(zip(bi.batch_to_ints(q), bi.batch_to_ints(r))) == [
+        divmod(x, y) if y else (0, x) for x, y in lanes]
 
 
 def _barrett_lanes(m, dev):
@@ -361,7 +437,8 @@ def test_modarith_on_card_exact_with_launch_counts(dev, m):
     build.reset_launch_counts()
     ctx = MA.barrett_precompute(_t([v], m, dev)[0])
     torch.cuda.synchronize()
-    assert sum(build.launch_counts().values()) == CM.precompute_launches(m)
+    assert sum(build.launch_counts().values()) == \
+        CM.precompute_launches(m) + CM.prologue_launches()
     build.reset_launch_counts()
     assert bi.batch_to_ints(MA.reduce_shared(ctx, _t(xs, 2 * m, dev))) == \
         [x % v for x in xs]
@@ -384,8 +461,8 @@ def test_modarith_on_card_exact_with_launch_counts(dev, m):
 def test_modulus_past_shared_memory_raises(dev):
     """A 2^18-bit modulus (W = 32778) now fits the step, Barrett and
     product kernels' staging: under cuda_fused and cuda_batched it
-    precomputes with `costmodel.precompute_launches(16384, impl)`
-    launches and reduces exactly.  A modulus past the new cap (the
+    precomputes with `costmodel.precompute_launches(16384, impl)` +
+    `prologue_launches(impl)` launches and reduces exactly.  A modulus past the new cap (the
     Barrett kernel's x, mu and v at 24000 limbs) raises before any
     launch, as one past the column-sum contract does under both."""
     from repro_torch.core import modarith as MA
@@ -399,11 +476,13 @@ def test_modulus_past_shared_memory_raises(dev):
         ctx = MA.barrett_precompute(_t([mod], m, dev)[0], impl)
         torch.cuda.synchronize()
         counts = build.launch_counts()
-        assert sum(counts.values()) == CM.precompute_launches(m, impl)
+        assert sum(counts.values()) == \
+            CM.precompute_launches(m, impl) + CM.prologue_launches(impl)
         if name:
             assert counts == {name: CM.precompute_launches(m, impl)}
         else:
-            assert counts == {"powdiff": CM.precompute_launches(m) // 2,
+            assert counts == {"prologue": 1,
+                              "powdiff": CM.precompute_launches(m) // 2,
                               "update": CM.precompute_launches(m) // 2}
         mu = bi.to_int(bi.limbs_to_numpy(ctx.mu))
         assert mu - B ** MA.barrett_h(m) // mod in (0, 1)
@@ -545,6 +624,7 @@ def test_impls_on_card_exact_with_launch_counts(dev, impl):
         out = fn()
         torch.cuda.synchronize()
         want = CM.model_launches(op, m, impl, **kw)
+        assert CM.prologue_launches(impl) == 0      # the set-up in torch
         assert build.launch_counts() == ({name: want} if want else {})
         return out
 
@@ -768,8 +848,9 @@ def test_divmod_graph_replay_equals_eager_and_plain(dev, m, impl):
     fv = fu.clone()
     fv[:, 0] = 1
     exe = _graph(partial(S.divmod_batch, impl=impl), (fu, fv), impl)
-    assert sum(exe.launches.values()) == CM.divmod_launches(m, impl)
-    assert exe.static["kernel_launches"] == CM.divmod_launches(m, impl)
+    want = CM.divmod_launches(m, impl) + CM.prologue_launches(impl)
+    assert sum(exe.launches.values()) == want
+    assert exe.static["kernel_launches"] == want
     (q, r), counts = _replayed(exe, (u.cpu(), v.cpu()))
     assert counts == {k: 3 * n for k, n in exe.launches.items()}
     for qq, rr in (S.divmod_batch(u, v, impl=impl),
@@ -798,7 +879,8 @@ def test_modarith_graphs_replay_equal_eager_and_plain(dev, m, impl):
     one[0] = 1
     pre = _graph(partial(MA.barrett_precompute, impl=impl), (one,), impl)
     ctx, counts = _replayed(pre, (vt,))
-    assert sum(counts.values()) == 3 * CM.precompute_launches(m, impl)
+    assert sum(counts.values()) == 3 * (CM.precompute_launches(m, impl)
+                                        + CM.prologue_launches(impl))
     ctx = MA.BarrettContext(*ctx)
     for eager in (MA.barrett_precompute(vt, impl),
                   MA.barrett_precompute(vt, "blocked")):
@@ -931,7 +1013,8 @@ def test_modexp_full_exponent_graph(dev):
     assert mod.modexp(a, e, v) == [pow(x, y, v) for x, y in zip(a, e)]
     torch.cuda.synchronize()
     assert sum(build.launch_counts().values()) == (
-        CM.precompute_launches(m) + CM.modexp_launches(16 * m))
+        CM.precompute_launches(m) + CM.prologue_launches()
+        + CM.modexp_launches(16 * m))
 
 
 # ---------------------------------------------------------------------------
@@ -967,7 +1050,8 @@ def test_sharded_services_on_one_card_twice(dev):
     got, n = _launched(lambda: svc.divide(us, vs))
     assert list(zip(*got)) == [divmod(x, y) for x, y in zip(us, vs)]
     assert got == plain.divide(us, vs)
-    assert n == 2 * 2 * CM.divmod_launches(m)          # 2 chunks x 2 shards
+    assert n == 2 * 2 * (CM.divmod_launches(m)         # 2 chunks x 2 shards
+                         + CM.prologue_launches())
 
     mod = ModArithService(m, e_limbs=1, batch_buckets=(4,), mesh=mesh)
     mod.profile_bucket("precompute", 1)
@@ -987,7 +1071,8 @@ def test_sharded_services_on_one_card_twice(dev):
         assert mm == [x * y % v for x, y in zip(a, a[::-1])]
         assert me == [pow(x, y, v) for x, y in zip(a, e)]
         first = i < 2
-        assert n == per_round + first * CM.precompute_launches(m)
+        assert n == per_round + first * (CM.precompute_launches(m)
+                                         + CM.prologue_launches())
     assert mod.stats()["ctx_cache"]["misses"] == 2
     for snap in (svc.snapshot(), mod.snapshot()):
         rows = R.measured_vs_model(snap)
@@ -1043,7 +1128,9 @@ def test_dryrun_2p15(dev):
     rec = DR.run(2048, 8192, device=dev)
     assert rec["exact"] and rec["status"] == "ok"
     assert rec["rows_per_shard"] == 32 and rec["shards"] == 256
-    assert rec["launches"]["per_shard"] == CM.divmod_launches(2048)
+    assert rec["launches"]["per_shard"] == \
+        CM.divmod_launches(2048) + CM.prologue_launches()
+    assert rec["launches"]["prologue"] == CM.prologue_launches()
     assert rec["roofline"] == RL.roofline_terms(CM.divmod_work(2048, 32))
     assert rec["memory"]["peak_bytes_est"] > 4 * 32 * 2048 * 4
     assert rec["capture_s"] is not None
@@ -1070,8 +1157,9 @@ def test_scope_adds_no_launch(dev):
     spans = T.span_log()
     assert sum(s.device and s.name == "divmod" for s in spans) == 1
     assert sum(not s.device and s.name == "divmod" for s in spans) == 2
-    assert n == n2 == CM.divmod_launches(m)
-    assert sum(exe.launches.values()) == CM.divmod_launches(m)
+    want = CM.divmod_launches(m) + CM.prologue_launches()
+    assert n == n2 == want
+    assert sum(exe.launches.values()) == want
     assert torch.equal(q, q2) and torch.equal(r, r2)
 
 
@@ -1127,7 +1215,8 @@ def test_marks_change_no_answer_and_no_launch_count(dev):
     (q1, r1), counts = _replayed(exe, (u, v))
     q2, r2 = S.divmod_batch(u, v)
     assert torch.equal(q1, q2) and torch.equal(r1, r2)
-    assert sum(exe.launches.values()) == CM.divmod_launches(m)
+    assert sum(exe.launches.values()) == \
+        CM.divmod_launches(m) + CM.prologue_launches()
     assert counts == {k: 3 * n for k, n in exe.launches.items()}
 
 
