@@ -554,9 +554,15 @@ def ptxas_report(path: Path) -> dict:
     out, name = {}, None
     text = path.read_text() if path.exists() else ""
     for line in text.splitlines():
-        m = re.search(r"Function properties for _Z\d+(\w+?_kernel)", line)
+        m = re.search(r"Function properties for _Z\d+(\w+?_kernel)(\w*)",
+                      line)
         if m:
+            # the step kernels' instantiations by team: <cluster>, <1 warp>
             name = m.group(1)
+            t = re.search(r"ClusterTeam|WarpTeamILi(\d+)E", m.group(2))
+            if t:
+                name += (f"<{t.group(1)} warp>" if t.group(1)
+                         else "<cluster>")
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1082,11 +1088,13 @@ class Smoke:
             self.compare("update", (F.update_cuda(*args, win=win),),
                          (F.update_reference(*args, win=win),))
             log(f"powdiff+update synthetic states, win {win}: exact")
-        # every cluster size, and a 2^18-bit modulus's full window (4
-        # lanes, the cluster of the precompute's single lane)
-        for batch, fw, win in ((256, full_w, 528), (100, full_w, 528),
+        # every cluster size, a 2^18-bit modulus's full window (4 lanes,
+        # the cluster of the precompute's single lane), and the packed
+        # steps at 2^18 bits (W 16,392) on a batch past 1.5 lanes an SM
+        packed = [(301, 16384 + self.S.PAD, w) for w in (32, 272, 528, 1040)]
+        for batch, fw, win in [(256, full_w, 528), (100, full_w, 528),
                                (64, full_w, 528), (5, full_w, 528),
-                               (4, 32778, 32778)):
+                               (4, 32778, 32778)] + packed:
             st = self.synthetic_states(fw, win, batch, batch + win)
             sk, xk = F.powdiff_cuda(st["v"], st["w"], st["hpd"], st["lpd"],
                                     st["s"], win=win)
@@ -1099,8 +1107,18 @@ class Smoke:
             got = (self.D.last_cluster["powdiff"],
                    self.D.last_cluster["update"])
             self.expect(f"step clusters at batch {batch}", got, (cs, cs))
+            plan = self.D.step_plan(win, batch, self.sms, self.build.lib(
+                "step").step_lane_bytes(win))
+            lanes = plan.lanes if plan else 1
+            got = (self.D.last_lanes["powdiff"], self.D.last_lanes["update"])
+            self.expect(f"step lanes a block at batch {batch}, win {win}",
+                        got, (lanes, lanes))
+            if (batch, fw, win) in packed:
+                self.expect(f"packed at batch {batch}, W {fw}, win {win}",
+                            lanes > 1, True)
             log(f"powdiff+update synthetic states, win {win}, batch "
-                f"{batch}, cluster {cs}: exact")
+                f"{batch}, cluster {cs}, "
+                f"{self.D.last_lanes['update']} lanes a block: exact")
         # the finalization at W = 2056 around the true shifted inverse
         W = full_w
         rnd = random.Random(5)
@@ -1423,6 +1441,7 @@ class Smoke:
                 if name in ("powdiff", "update"):
                     row[f"{name}_products"] = work[0]
                     row[f"{name}_cluster"] = self.D.last_cluster[name]
+                    row[f"{name}_lanes"] = self.D.last_lanes[name]
                     if row["iter"] == last:
                         row[f"{name}_burst_ms"] = self.burst_ms(fn, n=10)
                     ms = row[f"{name}_device_ms"] or row.get(

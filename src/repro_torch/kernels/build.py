@@ -142,10 +142,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         "mul_batch_launch": [P, P, P, P, I, I, I, I, P, P],
         "mul_batch_scratch_bytes": [I],
         "mul_batch_smem_bytes": [I, I, I],
-        "powdiff_launch": [P, P, P, P, P, P, P, P, I, I, I, P, P],
-        "update_launch": [P, P, P, P, P, P, P, P, I, I, I, P, P],
+        "powdiff_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P],
+        "update_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P],
         "step_scratch_bytes": [I],
         "step_smem_bytes": [I],
+        "step_lane_bytes": [I],
         "correct_launch": [P, P, P, P, P, P, P, I, I, P, P],
         "correct_scratch_bytes": [I],
         "correct_smem_bytes": [I],

@@ -31,6 +31,12 @@
 // the columns, and the carry chain crosses blocks through each block's
 // (generate, propagate) pair, read over distributed shared memory.
 // Comparisons and reductions run over the cluster the same way.
+//
+// A team.  Where an instance is small, a team of warps of one block runs
+// it instead (step.cu's packed geometry): team_product deals the same
+// tile groups to the team's warps, and one warp resolves the carries
+// (warp_resolve) and runs the chains (warp_chain) with ballots, all in
+// the team's shared memory.
 #pragma once
 
 #include <climits>
@@ -86,12 +92,15 @@ struct Block {
 // A layout of the n limbs limb(0), ..., limb(n - 1) (a buffer of
 // a_bytes(cap), cap >= n).  `limb` may read at a per-lane offset (the
 // step kernels' shifted operand), so one layout serves every caller.
+// Every thread of the block stages by default; `tid` and `nthreads` give
+// a team of a block its own share instead.
 template <class F>
 __device__ inline void stage_a_fn(unsigned char* buf, int cap, F limb,
-                                  int n) {
+                                  int n, int tid = threadIdx.x,
+                                  int nthreads = kThreads) {
   uint16_t* w = reinterpret_cast<uint16_t*>(buf);
   const int words = (int)(a_bytes(cap) / 2);
-  for (int i = threadIdx.x; i < words; i += kThreads) {
+  for (int i = tid; i < words; i += nthreads) {
     const int j = i - kAPad / 2;
     w[i] = (j >= 0 && j < n) ? (uint16_t)limb(j) : (uint16_t)0;
   }
@@ -103,10 +112,11 @@ __device__ inline void stage_a_fn(unsigned char* buf, int cap, F limb,
 // word (P - 1) / 2 - j = n + 6 - j.
 template <class F>
 __device__ inline void stage_b_fn(unsigned char* buf, int cap, F limb,
-                                  int n) {
+                                  int n, int tid = threadIdx.x,
+                                  int nthreads = kThreads) {
   uint16_t* w = reinterpret_cast<uint16_t*>(buf);
   const int words = (int)(b_bytes(cap) / 2);
-  for (int i = threadIdx.x; i < words; i += kThreads) {
+  for (int i = tid; i < words; i += nthreads) {
     const int j = n + 6 - i;
     uint32_t x = (j >= 0 && j < n) ? (uint32_t)limb(j) : 0u;
     w[i] = (uint16_t)(((x >> 8) | (x << 8)) & kMask);
@@ -181,6 +191,81 @@ __device__ inline void mma_u8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Limb column sums of a * b (A and B layouts of na8 and nb8 digits) for
+// the ng <= kGroup row tiles from tg, one warp sharing each B fragment
+// among them; columns at or past n_cols are not written.
+__device__ __forceinline__ void sweep_group(const unsigned char* A, int na8,
+                                            const unsigned char* Bv, int nb8,
+                                            int n_cols, uint64_t* col,
+                                            int tg, int ng) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int P = nb8 + 13;
+  int lo[kGroup], hi[kGroup];
+  int lo_g = INT_MAX, hi_g = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    lo[j] = 1;
+    hi[j] = 0;
+    if (j < ng) tile_range(tg + j, na8, nb8, lo[j], hi[j]);
+    if (hi[j] >= lo[j]) {
+      lo_g = min(lo_g, lo[j]);
+      hi_g = max(hi_g, hi[j]);
+    }
+  }
+  int acc[kGroup][4];
+  unsigned long long wide[kGroup][4];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[j][i] = 0;
+      wide[j][i] = 0;
+    }
+  int step = 0;
+  for (int k0 = lo_g & ~3; lo_g <= hi_g && k0 <= hi_g; k0 += kKStep) {
+    uint32_t b[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int idx = P - g + k0 + 4 * t + 16 * j;
+      const uint32_t* w =
+          reinterpret_cast<const uint32_t*>(Bv + (idx & ~3));
+      b[j] = __funnelshift_r(w[0], w[1], 8 * (idx & 3));
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j < ng && k0 <= hi[j] && k0 + kKStep - 1 >= lo[j]) {
+        const int r0 = (kTileRows * (tg + j) + g) * kN + k0 + 4 * t + kAPad;
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(A + r0);
+        a[1] = *reinterpret_cast<const uint32_t*>(A + r0 + 8 * kN);
+        a[2] = *reinterpret_cast<const uint32_t*>(A + r0 + 16);
+        a[3] = *reinterpret_cast<const uint32_t*>(A + r0 + 8 * kN + 16);
+        mma_u8(acc[j], a, b);
+      }
+    }
+    if (++step == kKChunk / kKStep) {
+      step = 0;
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          wide[j][i] += (uint32_t)acc[j][i];
+          acc[j][i] = 0;
+        }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    if (j >= ng) continue;
+    unsigned long long s[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i] = wide[j][i] + (uint32_t)acc[j][i];
+    const int k = (kTileRows * (tg + j) + g) * (kN / 2) + t;
+    if (k < n_cols) col[k] = s[0] + (s[1] << 8);
+    if (k + 8 * (kN / 2) < n_cols) col[k + 8 * (kN / 2)] = s[2] + (s[3] << 8);
+  }
+}
+
 // Limb column sums col[0, n_cols) of a * b (A and B layouts of na8 and
 // nb8 digits) over this block's share of the row tiles; every thread of
 // the block calls it.  Column j < n_cols is written by exactly one
@@ -208,8 +293,7 @@ __device__ __noinline__ void digit_product(const unsigned char* A, int na8,
   // more tiles than warps, so that every warp has one
   const int gsz = t1 - t0 > kWarps ? kGroup : 1;
   const int groups = (t1 - t0 + gsz - 1) / gsz;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int P = nb8 + 13;
+  const int lane = threadIdx.x & 31;
   for (;;) {
     int gi = 0;
     if (lane == 0) gi = atomicAdd(&st.sched[2], 1);
@@ -218,73 +302,25 @@ __device__ __noinline__ void digit_product(const unsigned char* A, int na8,
     gi = groups - 1 - gi;          // the heavier high tiles of a truncated
                                    // product start first
     const int tg = t0 + gi * gsz;
-    const int ng = min(gsz, t1 - tg);
-    int lo[kGroup], hi[kGroup];
-    int lo_g = INT_MAX, hi_g = INT_MIN;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      lo[j] = 1;
-      hi[j] = 0;
-      if (j < ng) tile_range(tg + j, na8, nb8, lo[j], hi[j]);
-      if (hi[j] >= lo[j]) {
-        lo_g = min(lo_g, lo[j]);
-        hi_g = max(hi_g, hi[j]);
-      }
-    }
-    int acc[kGroup][4];
-    unsigned long long wide[kGroup][4];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[j][i] = 0;
-        wide[j][i] = 0;
-      }
-    int step = 0;
-    for (int k0 = lo_g & ~3; lo_g <= hi_g && k0 <= hi_g; k0 += kKStep) {
-      uint32_t b[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int idx = P - g + k0 + 4 * t + 16 * j;
-        const uint32_t* w =
-            reinterpret_cast<const uint32_t*>(Bv + (idx & ~3));
-        b[j] = __funnelshift_r(w[0], w[1], 8 * (idx & 3));
-      }
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        if (j < ng && k0 <= hi[j] && k0 + kKStep - 1 >= lo[j]) {
-          const int r0 = (kTileRows * (tg + j) + g) * kN + k0 + 4 * t + kAPad;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(A + r0);
-          a[1] = *reinterpret_cast<const uint32_t*>(A + r0 + 8 * kN);
-          a[2] = *reinterpret_cast<const uint32_t*>(A + r0 + 16);
-          a[3] = *reinterpret_cast<const uint32_t*>(A + r0 + 8 * kN + 16);
-          mma_u8(acc[j], a, b);
-        }
-      }
-      if (++step == kKChunk / kKStep) {
-        step = 0;
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            wide[j][i] += (uint32_t)acc[j][i];
-            acc[j][i] = 0;
-          }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (j >= ng) continue;
-      unsigned long long s[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[i] = wide[j][i] + (uint32_t)acc[j][i];
-      const int k = (kTileRows * (tg + j) + g) * (kN / 2) + t;
-      if (k < n_cols) col[k] = s[0] + (s[1] << 8);
-      if (k + 8 * (kN / 2) < n_cols) col[k + 8 * (kN / 2)] = s[2] + (s[3] << 8);
-    }
+    sweep_group(A, na8, Bv, nb8, n_cols, col, tg, min(gsz, t1 - tg));
   }
   __syncthreads();
+}
+
+// The same column sums by `warps` warps of a team alone (warp `warp` of
+// them calls it), the groups dealt out in turn, heaviest first, with no
+// barrier: the caller synchronises the team before reading col.
+__device__ __noinline__ void team_product(const unsigned char* A, int na8,
+                                          const unsigned char* Bv, int nb8,
+                                          int n_cols, uint64_t* col,
+                                          int warp, int warps) {
+  const int tiles = (n_cols + 63) / 64;
+  const int gsz = tiles > warps ? kGroup : 1;
+  const int groups = (tiles + gsz - 1) / gsz;
+  for (int gi = warp; gi < groups; gi += warps) {
+    const int tg = (groups - 1 - gi) * gsz;
+    sweep_group(A, na8, Bv, nb8, n_cols, col, tg, min(gsz, tiles - tg));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -450,6 +486,63 @@ __device__ void cluster_resolve(const uint64_t* col, int n_cols,
 }
 
 // ---------------------------------------------------------------------------
+// one warp's carry chains
+// ---------------------------------------------------------------------------
+
+// The carry chain of cluster_chain run by one warp alone, 32 positions a
+// round, lane j at position base + j (coalesced).  A round's carries come
+// from its generate and propagate ballots G and P (disjoint for every
+// Digit) by one addition: (G | P) + G + c sets bit j of its sum xor P
+// exactly where position j receives a carry, and its bit 32 is the carry
+// into the next round.  Every lane of the warp calls it.  digit(i) is
+// called by every lane once a round, in order, also at i >= n, where its
+// value is ignored (it may shuffle; it must not read out of bounds
+// there); store(i, limb) receives each output i < n in the same round.
+template <class F, class S>
+__device__ void warp_chain(int n, F digit, bool subtract, S store,
+                           uint32_t cin = 0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t c = cin;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const Digit d = digit(i);
+    const uint32_t G = __ballot_sync(kFull, i < n && d.g != 0);
+    const uint32_t P = __ballot_sync(kFull, i < n && d.p != 0);
+    const unsigned long long sum = (unsigned long long)(G | P) + G + c;
+    const uint32_t ci = (((uint32_t)sum ^ P) >> lane) & 1u;
+    if (i < n) store(i, (subtract ? d.s - ci : d.s + ci) & kMask);
+    c = (uint32_t)(sum >> 32);
+  }
+}
+
+// cluster_resolve by one warp: column sums col[0, n_cols) (zero above;
+// each < 2^48) -> limbs of positions [0, n), mod B^n, through store(i,
+// limb).  Lane j makes position base + j's piece; the piece below comes
+// from the neighbouring lane, or from lane 31 of the round before.
+template <class S>
+__device__ void warp_resolve(const uint64_t* col, int n_cols, int n,
+                             S store) {
+  const int lane = threadIdx.x & 31;
+  auto at = [&](int k) -> uint64_t {
+    return k >= 0 && k < n_cols ? col[k] : 0ull;
+  };
+  uint32_t last = 0;                 // the piece of position base - 1
+  warp_chain(
+      n,
+      [&](int k) {
+        const uint32_t e = (uint32_t)(at(k) & kMask)
+            + (uint32_t)((at(k - 1) >> 16) & kMask)
+            + (uint32_t)(at(k - 2) >> 32);
+        uint32_t below = __shfl_up_sync(kFull, e, 1);
+        if (lane == 0) below = last;
+        last = __shfl_sync(kFull, e, 31);
+        const uint32_t s = (e & kMask) + (below >> 16);
+        return Digit{s, s >> 16, s == kMask ? 1u : 0u};
+      },
+      false, store);
+}
+
+// ---------------------------------------------------------------------------
 // the launch
 // ---------------------------------------------------------------------------
 
@@ -510,6 +603,38 @@ cudaError_t launch(int batch, int* cluster, size_t bytes,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3((unsigned)batch * cs, 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launches `kernel` on ceil(batch / lanes) blocks of `threads` threads,
+// `lanes` instances a block, with `bytes` of dynamic shared memory and
+// no cluster: one launch.
+template <auto kernel, class... Args>
+cudaError_t launch_packed(int batch, int lanes, int threads, size_t bytes,
+                          cudaStream_t stream, Args... args) {
+  if (batch <= 0) return cudaSuccess;
+  static std::mutex mu;
+  static size_t allowed[limbs::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= limbs::kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (bytes > allowed[dev]) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return err;
+      allowed[dev] = bytes;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((batch + lanes - 1) / lanes), 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -24,6 +24,10 @@ c8[2j+1] * 2^8.
 An instance runs on a thread-block cluster of `cluster_size(batch)`
 blocks; block `rank` takes a contiguous range of row tiles, split by
 `split_tiles` so that each block gets about the same number of k steps.
+The step kernels also run packed (`step_plan`): at cluster 1 and a
+small window, a team of warps per instance and several a block, the
+tile groups dealt to the team's warps (the schedule of one block with
+`warps` warps).
 
 The wrappers ask only `cluster_size(batch, device_sms(device))`; the
 kernels split rows themselves (`tile_scan` in csrc/digitmma.cuh) and
@@ -40,6 +44,7 @@ path calls them.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -65,9 +70,20 @@ MAX_LIMBS = 1 << 16
 
 assert K_CHUNK <= S32_TERMS
 
+# the packed step geometry (csrc/step.cu, whose launch refuses a block
+# of more threads or shared memory): at most this many threads a block;
+# (widest window, warps a team) from the narrowest; the widest window
+# packed at all, and the widest packed under 1.5 instances an SM
+PACK_THREADS = 256
+PACK_TEAMS = ((272, 1), (528, 2), (1040, 4))
+PACK_WINDOW = PACK_TEAMS[-1][0]
+PACK_WINDOW_SPARSE = 144
+
 # the cluster size each wrapper's last launch used (after the launch's
 # residency check), by kernel name
 last_cluster: dict[str, int] = {}
+# instances a block of each step kernel's last launch: 1 where clustered
+last_lanes: dict[str, int] = {}
 
 
 def check_contract(na: int, nb: int) -> None:
@@ -146,6 +162,39 @@ def cluster_size(batch: int, sms: int = SMS) -> int:
     while cs < MAX_CLUSTER and 0 < batch * cs < sms:
         cs *= 2
     return cs
+
+
+class StepPlan(NamedTuple):
+    """A packed step launch: `warps` warps a team (one instance),
+    `lanes` teams a block."""
+    warps: int
+    lanes: int
+
+
+def step_plan(win: int, batch: int, sms: int,
+              lane_bytes: int) -> StepPlan | None:
+    """The packed geometry of a powdiff or update launch, or None for the
+    clustered one; `lane_bytes` is the shared memory of one packed
+    instance at this window (the step library's `step_lane_bytes(win)`).
+    Packed where an instance's cluster would be one block (batch >= sms)
+    and the window is at most PACK_WINDOW limbs: there a clustered launch
+    costs about the same at every window (a serial chain of block and
+    cluster barriers per instance, two instances per SM), and tens of
+    instances per SM hide it.  Under 1.5 instances an SM most SMs would
+    run one clustered block alone, which finishes a window wider than
+    PACK_WINDOW_SPARSE sooner than a team does, so only windows up to
+    that pack there.  A team is one warp up to 272 limbs, two up to 528
+    and four above, where the product grows; blocks hold as many teams as
+    PACK_THREADS threads and DYNAMIC_SMEM_BYTES allow, and nothing packs
+    where one instance does not fit.  (On an H100 at 2^15-2^18 bits, from
+    132 to 131,072 instances: PERF.md.)"""
+    if cluster_size(batch, sms) != 1 or win > PACK_WINDOW:
+        return None
+    if 2 * batch < 3 * sms and win > PACK_WINDOW_SPARSE:
+        return None
+    warps = next(w for top, w in PACK_TEAMS if win <= top)
+    lanes = min(PACK_THREADS // (32 * warps), DYNAMIC_SMEM_BYTES // lane_bytes)
+    return StepPlan(warps, lanes) if lanes else None
 
 
 @functools.cache

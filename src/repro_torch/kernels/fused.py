@@ -20,6 +20,8 @@ digit GEMMs with an instance spread over a cluster
 library whether a width's staging fits shared memory
 (`step_smem_bytes`, `correct_smem_bytes`, `barrett_smem_bytes`), and
 record the cluster size each launch used in `digitmma.last_cluster`.
+The step kernels also run packed, many instances a block
+(`digitmma.step_plan`; `digitmma.last_lanes`).
 `powdiff_reference`,
 `update_reference`, `step_reference`, `correct_reference` and
 `barrett_reference` are the plain PyTorch versions (the JAX package's
@@ -213,19 +215,27 @@ def _step_lib(win: int, batch: int, full_w: int, **arrs):
 
 
 def _step_launch(lib, kernel: str, batch: int, full_w: int, win: int,
-                 device, *ptrs) -> None:
-    """One launch of a step kernel on clusters of
-    `digitmma.cluster_size(batch, sms)` blocks per instance."""
-    scratch = torch.empty(batch * lib.step_scratch_bytes(win),
-                          dtype=torch.uint8, device=device)
-    cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(device)))
-    with build.on_device(scratch) as stream:
+                 like: torch.Tensor, *ptrs) -> None:
+    """One launch of a step kernel on `like`'s card: packed where
+    `digitmma.step_plan` gives a plan (no global scratch), else on
+    clusters of `digitmma.cluster_size(batch, sms)` blocks per instance
+    with a per-instance scratch."""
+    sms = D.device_sms(like.device)
+    plan = D.step_plan(win, batch, sms, lib.step_lane_bytes(win))
+    cluster = ctypes.c_int(D.cluster_size(batch, sms))
+    scratch = None
+    if plan is None:
+        scratch = torch.empty(batch * lib.step_scratch_bytes(win),
+                              dtype=torch.uint8, device=like.device)
+    warps, lanes = plan or (0, 1)
+    with build.on_device(like) as stream:
         err = getattr(lib, f"{kernel}_launch")(
-            *ptrs, scratch.data_ptr(), batch, full_w, win,
-            ctypes.byref(cluster), stream)
+            *ptrs, None if scratch is None else scratch.data_ptr(), batch,
+            full_w, win, warps, lanes, ctypes.byref(cluster), stream)
     build.check(err, f"{kernel} kernel")
     build.count(kernel)
     D.last_cluster[kernel] = cluster.value
+    D.last_lanes[kernel] = lanes
 
 
 def powdiff_cuda(v, w, hpd, lpd, s, *, win: int):
@@ -244,7 +254,7 @@ def _powdiff_launch(v, w, hpd, lpd, s, *, win: int):
     sign = torch.empty(batch, dtype=torch.int32, device=v.device)
     x = torch.empty_like(v)
     if batch:
-        _step_launch(lib, "powdiff", batch, full_w, win, v.device,
+        _step_launch(lib, "powdiff", batch, full_w, win, v,
                      v.data_ptr(), w.data_ptr(), sc["hpd"].data_ptr(),
                      sc["lpd"].data_ptr(), sc["s"].data_ptr(),
                      sign.data_ptr(), x.data_ptr())
@@ -259,7 +269,7 @@ def update_cuda(w, x, sign, h, m, active, *, win: int):
     sc = _scalars(batch, w.device, sign=sign, h=h, m=m, act=active)
     out = torch.empty_like(w)
     if batch:
-        _step_launch(lib, "update", batch, full_w, win, w.device,
+        _step_launch(lib, "update", batch, full_w, win, w,
                      w.data_ptr(), x.data_ptr(), sc["sign"].data_ptr(),
                      sc["h"].data_ptr(), sc["m"].data_ptr(),
                      sc["act"].data_ptr(), out.data_ptr())

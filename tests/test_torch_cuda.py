@@ -153,6 +153,115 @@ def test_step_kernels_wide_windows(dev, win):
         assert _check_step(one, win) == (want, want)
 
 
+def _branches(st, win, sign):
+    """Per lane, which edge of the step a lane takes (plain ops on the
+    card): v * w = 0, powdiff's close and full branches, and update's
+    floor correction (a nonzero dropped limb under the minus sign)."""
+    from repro_torch.core import arith as A
+    vp = A.shift(st["v"], -st["s"])[:, :win]
+    wq = st["w"][:, :win]
+    pv, pw = A.prec(vp), A.prec(wq)
+    vwz = (pv == 0) | (pw == 0)
+    full = vwz | (pv + pw - st["lpd"] + 1 >= st["hpd"])
+    x = F.powdiff_reference(st["v"], st["w"], st["hpd"], st["lpd"],
+                            st["s"], win=win)[1]
+    tmp = K.mul_plain(wq, x[:, :win], 2 * win)
+    idx = torch.arange(2 * win, device=tmp.device)
+    dropped = ((idx < (st["h"] - 2 * st["m"])[:, None]) & (tmp != 0)).any(-1)
+    return dict(vwz=vwz, close=~full, full=full & ~vwz,
+                dropped=dropped & ~sign & st["active"])
+
+
+@pytest.mark.parametrize("full_w", [2056, 16392])
+@pytest.mark.parametrize("win", [32, 48, 80, 144, 272, 528, 1040])
+def test_step_kernels_packed_match_plain_and_clustered(dev, monkeypatch,
+                                                       full_w, win):
+    """The packed powdiff and update (`digitmma.step_plan`: 301 lanes, a
+    batch that is no multiple of the teams a block) at each window the
+    Refine loop runs packed, at the working widths of 2^15 and 2^18 bits:
+    equal to the plain versions and to the clustered path bit for bit, on
+    lanes that take v * w = 0, the close and the full branch, both signs,
+    inactive lanes and the dropped-limb floor correction."""
+    from repro_torch.kernels import digitmma as D
+    batch = 301
+    plan = D.step_plan(win, batch, D.device_sms(dev),
+                       build.lib("step").step_lane_bytes(win))
+    assert plan is not None and batch % plan.lanes
+    st = _step_lanes(batch, full_w, win, full_w + win, dev)
+    pd = (st["v"], st["w"], st["hpd"], st["lpd"], st["s"])
+    sk, xk = F.powdiff_cuda(*pd, win=win)
+    assert (D.last_cluster["powdiff"], D.last_lanes["powdiff"]) == \
+        (1, plan.lanes)
+    args = (st["w"], xk, sk, st["h"], st["m"], st["active"])
+    out = F.update_cuda(*args, win=win)
+    assert (D.last_cluster["update"], D.last_lanes["update"]) == \
+        (1, plan.lanes)
+    torch.cuda.synchronize()
+    sp, xp = F.powdiff_reference(*pd, win=win)
+    assert torch.equal(sk, sp) and torch.equal(xk, xp)
+    assert torch.equal(out, F.update_reference(*args, win=win))
+    seen = _branches(st, win, sp)
+    assert all(bool(lanes.any()) for lanes in seen.values()), seen
+    assert bool(sp.any()) and bool((~sp).any())
+    assert bool((~st["active"]).any())
+    monkeypatch.setattr(D, "step_plan", lambda *a, **k: None)
+    sc, xc = F.powdiff_cuda(*pd, win=win)
+    oc = F.update_cuda(*args, win=win)
+    torch.cuda.synchronize()
+    assert D.last_lanes["powdiff"] == D.last_lanes["update"] == 1
+    assert torch.equal(sc, sk) and torch.equal(xc, xk)
+    assert torch.equal(oc, out)
+
+
+def test_packed_lane_bytes_match_the_library(dev):
+    """The step library's lane_bytes, which step_plan is given, holds an
+    instance's column sums and both staged operands, and packs at least
+    one instance a block at every window step_plan packs at all."""
+    from repro_torch.kernels import digitmma as D
+    lib = build.lib("step")
+    for win in range(1, D.PACK_WINDOW + 1):
+        got = lib.step_lane_bytes(win)
+        assert got >= 16 + 16 * win + 4 * win
+        assert got % 16 == 0
+        plan = D.step_plan(win, 16384, D.device_sms(dev), got)
+        assert plan is not None and plan.lanes * got <= D.DYNAMIC_SMEM_BYTES
+
+
+@pytest.mark.parametrize("m", [2048, 16384])
+def test_divmod_with_packed_steps_exact_with_launch_count(dev, m):
+    """A division batch of 1.5 lanes an SM (cluster 1), so that its
+    Refine iterations up to digitmma.PACK_WINDOW run packed: exact
+    against Python on edge and random lanes (u all-0xFFFF, v = B^(m/2),
+    v = 0, one-limb v, u < v), with the launches of
+    costmodel.divmod_launches(m) + prologue_launches()."""
+    from repro_torch.kernels import digitmma as D
+    sms = D.device_sms(dev)
+    batch = (3 * sms + 1) // 2
+    lib = build.lib("step")
+    for win in (CM.refine_window(0, m + S.PAD), D.PACK_WINDOW):
+        assert D.step_plan(win, batch, sms,
+                           lib.step_lane_bytes(win)) is not None
+    rnd = random.Random(m)
+    us = [rnd.getrandbits(16 * m) for _ in range(batch)]
+    vs = [rnd.getrandbits(16 * rnd.randint(1, m // 2)) | 1
+          for _ in range(batch)]
+    us[0], vs[0] = B ** m - 1, B ** (m // 2) - 1
+    vs[1], vs[2], vs[3] = B ** (m // 2), 0, 7
+    us[4], vs[4] = 12345, B ** (m // 2) + 1
+    build.build_all()
+    build.reset_launch_counts()
+    q, r = S.divmod_batch(_t(us, m, dev), _t(vs, m, dev))
+    torch.cuda.synchronize()
+    it = CM.refine_iters(m)
+    assert build.launch_counts() == {"prologue": 1, "powdiff": it,
+                                     "update": it, "correct": 1}
+    assert sum(build.launch_counts().values()) == \
+        CM.divmod_launches(m) + CM.prologue_launches()
+    for x, y, qq, rr in zip(us, vs, bi.batch_to_ints(q),
+                            bi.batch_to_ints(r)):
+        assert (qq, rr) == (divmod(x, y) if y else (0, x))
+
+
 @pytest.mark.parametrize("w", [12, 40])
 def test_correct_kernel_matches_plain(dev, w):
     rnd = random.Random(w)

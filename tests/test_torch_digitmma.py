@@ -115,6 +115,70 @@ def test_cluster_size(batch, sms, size):
     assert D.cluster_plan(batch, 100, sms)[0] == size
 
 
+# the Refine windows up to 2^18 bits (costmodel.refine_window), each
+# side of the team sizes', the sparse and the packed bounds, and the
+# precompute's widest
+PLAN_WINDOWS = [1, 32, 48, 80, 144, 145, 272, 273, 528, 529, 1040, 1041,
+                2056, 2064, 32778]
+
+
+def _lane_bytes(win):
+    """A stand-in for the step library's step_lane_bytes (checked against
+    the library on the card): team slots, the 64-bit column sums and both
+    staged operands at two bytes a limb, with their zero pads."""
+    return 16 + 16 * win + 4 * win + 576
+
+
+@pytest.mark.parametrize("win", PLAN_WINDOWS)
+@pytest.mark.parametrize("batch,sms", [(1, 132), (5, 132), (131, 132),
+                                       (132, 132), (133, 132), (197, 132),
+                                       (198, 132), (301, 132),
+                                       (16384, 132), (131072, 132),
+                                       (113, 114), (114, 114), (171, 114)])
+def test_step_plan_engages_at_cluster_one_and_small_windows(win, batch,
+                                                            sms):
+    """Packed exactly where an instance's cluster is one block and the
+    window is at most digitmma.PACK_WINDOW, which takes every window up to
+    272 limbs (Refine iterations 0-7 at every width); under 1.5 instances
+    an SM only up to PACK_WINDOW_SPARSE; never below one lane per SM (one
+    lane runs on a cluster of 8)."""
+    plan = D.step_plan(win, batch, sms, _lane_bytes(win))
+    one_block = D.cluster_size(batch, sms) == 1
+    assert one_block == (batch >= sms)
+    top = D.PACK_WINDOW if 2 * batch >= 3 * sms else D.PACK_WINDOW_SPARSE
+    assert (plan is not None) == (one_block and win <= top)
+    assert D.PACK_WINDOW >= 272 and D.PACK_WINDOW_SPARSE >= 32
+
+
+@pytest.mark.parametrize("batch", [132, 301, 16384, 131072])
+def test_step_plan_fits_the_block(batch):
+    """At every window it packs, a plan's block fits the kernels' thread
+    bound and DYNAMIC_SMEM_BYTES by the lane bytes it is given; a team is
+    1, 2 or 4 warps (the kernels' instantiations) and a multi-warp team
+    has a named barrier of its own (ids 1-15)."""
+    top = D.PACK_WINDOW if 2 * batch >= 3 * D.SMS else D.PACK_WINDOW_SPARSE
+    for win in range(1, top + 1):
+        plan = D.step_plan(win, batch, D.SMS, _lane_bytes(win))
+        assert plan is not None
+        assert plan.warps == next(w for top, w in D.PACK_TEAMS
+                                  if win <= top)
+        assert plan.warps in (1, 2, 4) and plan.lanes >= 1
+        assert 32 * plan.warps * plan.lanes <= D.PACK_THREADS <= 1024
+        assert plan.warps == 1 or plan.lanes <= 15
+        assert plan.lanes * _lane_bytes(win) <= D.DYNAMIC_SMEM_BYTES
+
+
+@pytest.mark.parametrize("lane_bytes,lanes", [
+    (1, 8), (D.DYNAMIC_SMEM_BYTES // 8, 8), (D.DYNAMIC_SMEM_BYTES // 3, 3),
+    (D.DYNAMIC_SMEM_BYTES, 1), (D.DYNAMIC_SMEM_BYTES + 1, 0)])
+def test_step_plan_sizes_blocks_by_the_lane_bytes_given(lane_bytes, lanes):
+    """Teams a block follow the shared memory of one instance that the
+    caller passes (the library's own figure); where one instance does not
+    fit, the launch stays clustered."""
+    plan = D.step_plan(32, 16384, D.SMS, lane_bytes)
+    assert (plan.lanes if plan else 0) == lanes
+
+
 @pytest.mark.parametrize("batch", [256, 128, 64, 16])
 @pytest.mark.parametrize("rows", [1, 16, 17, 100, 4098])
 @pytest.mark.parametrize("weighted", [False, True])
