@@ -1107,8 +1107,10 @@ class Smoke:
             got = (self.D.last_cluster["powdiff"],
                    self.D.last_cluster["update"])
             self.expect(f"step clusters at batch {batch}", got, (cs, cs))
-            plan = self.D.step_plan(win, batch, self.sms, self.build.lib(
-                "step").step_lane_bytes(win))
+            lib = self.build.lib("step")
+            plan = self.D.step_plan(win, batch, self.sms,
+                                    lib.step_lane_bytes(win),
+                                    lib.step_pack_threads())
             lanes = plan.lanes if plan else 1
             got = (self.D.last_lanes["powdiff"], self.D.last_lanes["update"])
             self.expect(f"step lanes a block at batch {batch}, win {win}",

@@ -49,7 +49,7 @@ import torch
 from .bigint import DTYPE, LOG_BASE, limbs_from_numpy, one_hot_pow
 from . import arith as A
 from . import shinv as S
-from repro_torch.kernels import digitmma as D, ops as K
+from repro_torch.kernels import bigmul, fused as F, ops as K
 from repro_torch.obs import costmodel as CM
 
 # MU_GUARD (costmodel.MU_GUARD): guard digits above 2m in h (keeps the
@@ -94,22 +94,18 @@ def context_from_numpy(v, mu, k, device) -> BarrettContext:
 
 def check_width(device, m: int, impl: str | None = None) -> None:
     """Raise ValueError where impl's kernels cannot run an m-limb modulus
-    on `device`, before any launch (`digitmma.check_staging`): on CUDA,
-    cuda_fused stages the precompute's step kernels at the Barrett window
-    W, the Barrett kernel and modmul's a * b, cuda_batched the product
-    kernel at W x W -> 2W.  cuda_pairs, blocked and the CPU have no
-    cap."""
+    on `device`, before any launch (`ops.check_fit`): on CUDA, cuda_fused
+    stages the precompute's step kernels at the Barrett window W, the
+    Barrett kernel and modmul's a * b, cuda_batched the product kernel
+    at W x W -> 2W (every product is at most that).  cuda_pairs, blocked
+    and the CPU have no cap."""
     width = barrett_width(m)
-
-    def need(libs, impl):
-        if impl == "cuda_fused":   # precompute steps, reduce, modmul's a*b
-            return max(libs["step"].step_smem_bytes(width),
-                       libs["barrett"].barrett_smem_bytes(2 * m, m, width),
-                       libs["mul"].mul_batch_smem_bytes(m, m, 2 * m))
-        # every product is at most W x W -> 2W
-        return libs["mul"].mul_batch_smem_bytes(width, width, 2 * width)
-
-    D.check_staging(device, impl, width, f"a {m}-limb modulus", need)
+    K.check_fit(device, impl, width, f"a {m}-limb modulus",
+                cuda_fused=lambda: (F.step_fit(width),
+                                    F.barrett_fit(2 * m, m, width),
+                                    bigmul.mul_batch_fit(m, m, 2 * m)),
+                cuda_batched=lambda: bigmul.mul_batch_fit(width, width,
+                                                          2 * width))
 
 
 def barrett_precompute(v: torch.Tensor, impl: str | None = None,

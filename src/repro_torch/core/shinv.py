@@ -41,7 +41,7 @@ import torch
 
 from .bigint import DTYPE, LOG_BASE, MASK, one_hot_pow
 from . import arith as A
-from repro_torch.kernels import digitmma as D, ops as K
+from repro_torch.kernels import bigmul, fused as F, ops as K
 from repro_torch.obs import telemetry as T
 from repro_torch.obs.costmodel import PAD, refine_iters, refine_window
 
@@ -136,8 +136,7 @@ class _Inverse:
 
     def __init__(self, v: torch.Tensor, h: torch.Tensor | None,
                  impl: str | None = None, u: torch.Tensor | None = None):
-        if K._fused(impl, *((v,) if u is None else (u, v))):
-            from repro_torch.kernels import fused as F
+        if K.runs_fused(impl, *((v,) if u is None else (u, v))):
             got = F.prologue_cuda(
                 v.to(DTYPE).contiguous(), h=h,
                 u=None if u is None else u.to(DTYPE).contiguous())
@@ -192,20 +191,16 @@ def shinv_batch(v: torch.Tensor, h: torch.Tensor, iters_max: int,
 
 def check_width(device, m: int, impl: str | None = None) -> None:
     """Raise ValueError where impl's kernels cannot run an m-limb division
-    on `device`, before any launch (`digitmma.check_staging`): on CUDA,
-    cuda_fused stages the step kernels at the last Refine window, which
-    is the full working width W = m + PAD, and the finalization kernel
-    at W; cuda_batched the product kernel at W x W -> 2W (u * shinv).
+    on `device`, before any launch (`ops.check_fit`): on CUDA, cuda_fused
+    stages the step kernels at the last Refine window, which is the full
+    working width W = m + PAD, and the finalization kernel at W;
+    cuda_batched the product kernel at W x W -> 2W (u * shinv).
     cuda_pairs, blocked and the CPU have no cap."""
     width = m + PAD
-
-    def need(libs, impl):
-        if impl == "cuda_fused":
-            return max(libs["step"].step_smem_bytes(width),
-                       libs["correct"].correct_smem_bytes(width))
-        return libs["mul"].mul_batch_smem_bytes(width, width, 2 * width)
-
-    D.check_staging(device, impl, width, f"a division of {m} limbs", need)
+    K.check_fit(device, impl, width, f"a division of {m} limbs",
+                cuda_fused=lambda: (F.step_fit(width), F.correct_fit(width)),
+                cuda_batched=lambda: bigmul.mul_batch_fit(width, width,
+                                                          2 * width))
 
 
 def divmod_batch(u: torch.Tensor, v: torch.Tensor, windowed: bool = True,

@@ -4,8 +4,9 @@
 `repro/kernels/bigmul.py:mul_pallas_batched`: exact (u * v) mod
 B^out_width as an 8-bit digit GEMM on the int8 tensor cores, an
 instance spread over a thread-block cluster below 132 lanes
-(`kernels/digitmma.py`); `kernels/ops.py:mul_plain` is its plain
-version.
+(`kernels/digitmma.py`; its staging fit `mul_batch_fit`);
+`kernels/ops.py:mul_plain` is its plain version.  Both launch through
+`fused._launch`.
 
 `mul_pairs` and `mulmod_pairs` (csrc/pairs.cu) replace `mul_pallas` and
 `mulmod_pallas`, whose `_mul_kernel` summed tile pairs per output
@@ -22,7 +23,6 @@ edge; nothing on a path calls them.
 
 from __future__ import annotations
 
-import ctypes
 import random
 
 import torch
@@ -30,6 +30,16 @@ import torch
 from repro_torch.core import arith as A
 from . import build, digitmma as D, ops
 from .build import check_limbs
+from .fused import _launch
+
+
+def mul_batch_fit(wu: int, wv: int, out_width: int) -> int:
+    """The product kernel's staging bytes for wu x wv -> out_width
+    limbs; raises as `fused.step_fit` does."""
+    D.check_contract(min(wu, out_width), min(wv, out_width))
+    return D.check_staging(
+        build.lib("mul").mul_batch_smem_bytes(wu, wv, out_width),
+        f"a {wu} x {wv} -> {out_width}-limb product")
 
 
 def mul_batch_cuda(u: torch.Tensor, v: torch.Tensor,
@@ -45,24 +55,12 @@ def mul_batch_cuda(u: torch.Tensor, v: torch.Tensor,
     check_limbs("v", v)
     batch, wu = u.shape
     wv = v.shape[1]
-    D.check_contract(min(wu, out_width), min(wv, out_width))
+    mul_batch_fit(wu, wv, out_width)
     lib = build.lib("mul")
-    if lib.mul_batch_smem_bytes(wu, wv, out_width) > D.DYNAMIC_SMEM_BYTES:
-        raise ValueError("operands too wide for the shared-memory product")
     out = torch.empty(batch, out_width, dtype=torch.int32, device=u.device)
-    if batch == 0:
-        return out
-    scratch = torch.empty(batch * lib.mul_batch_scratch_bytes(out_width),
-                          dtype=torch.uint8, device=u.device)
-    cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(u.device)))
-    with build.on_device(u) as stream:
-        err = lib.mul_batch_launch(u.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), scratch.data_ptr(), batch,
-                                   wu, wv, out_width, ctypes.byref(cluster),
-                                   stream)
-    build.check(err, "mul_batch kernel")
-    build.count("mul_batch")
-    D.last_cluster["mul_batch"] = cluster.value
+    if batch:
+        _launch(lib, "mul_batch", u, (u, v, out), (batch, wu, wv, out_width),
+                scratch=lib.mul_batch_scratch_bytes(out_width))
     return out
 
 
@@ -113,13 +111,8 @@ def mulmod_pairs_cuda(u: torch.Tensor, v: torch.Tensor, l_max: int,
     lib = build.lib("pairs")
     tiles = -(-n // lib.mul_pairs_tile())
     pub = torch.empty(1 + batch * tiles, dtype=torch.int64, device=u.device)
-    with build.on_device(u) as stream:
-        err = lib.mul_pairs_launch(u.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), pub.data_ptr(), batch,
-                                   u.shape[1], v.shape[1], wu, wv, n,
-                                   out_width, stream)
-    build.check(err, "mul_pairs kernel")
-    build.count("mul_pairs")
+    _launch(lib, "mul_pairs", u, (u, v, out, pub),
+            (batch, u.shape[1], v.shape[1], wu, wv, n, out_width))
     return out
 
 

@@ -147,6 +147,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "step_scratch_bytes": [I],
         "step_smem_bytes": [I],
         "step_lane_bytes": [I],
+        "step_pack_threads": [],
         "correct_launch": [P, P, P, P, P, P, P, I, I, P, P],
         "correct_scratch_bytes": [I],
         "correct_smem_bytes": [I],

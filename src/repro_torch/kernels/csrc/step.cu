@@ -500,6 +500,8 @@ extern "C" size_t step_smem_bytes(int win) { return smem_bytes(win); }
 
 extern "C" size_t step_lane_bytes(int win) { return lane_bytes(win); }
 
+extern "C" int step_pack_threads() { return kPackThreads; }
+
 extern "C" int powdiff_launch(const void* v, const void* w, const void* hpd,
                               const void* lpd, const void* s, void* sign,
                               void* x, void* scratch, int batch, int full_w,

@@ -29,16 +29,17 @@ small window, a team of warps per instance and several a block, the
 tile groups dealt to the team's warps (the schedule of one block with
 `warps` warps).
 
-The wrappers ask only `cluster_size(batch, device_sms(device))`; the
+A launch asks only `cluster_size(batch, device_sms(device))`; the
 kernels split rows themselves (`tile_scan` in csrc/digitmma.cuh) and
 size their shared-memory staging (`mul_batch_smem_bytes`,
 `step_smem_bytes`, `correct_smem_bytes`, `barrett_smem_bytes` in the
-libraries), which `check_staging` holds against shared memory before a
-division or a modulus launches anything.  `cluster_plan` (the split as
-row ranges) and `digit_columns_plain` (the schedule's CPU emulation: the
-same windows, clipping, flushes, groups and cluster split, with int32
-tile sums whose bound is asserted) are test-only: nothing on the main
-path calls them.
+libraries), which each kernel's fit function (`fused.step_fit` & co.)
+holds against shared memory through `check_staging`, on every launch
+and before a division or a modulus launches anything (`ops.check_fit`).
+`cluster_plan` (the split as row ranges) and `digit_columns_plain` (the
+schedule's CPU emulation: the same windows, clipping, flushes, groups
+and cluster split, with int32 tile sums whose bound is asserted) are
+test-only: nothing on the main path calls them.
 """
 
 from __future__ import annotations
@@ -48,9 +49,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import build
 from .build import SMEM_BYTES
-from .ops import check_impl, resolve_columns
+from .ops import resolve_columns
 
 N = 8                 # columns of C per row (the n of m16n8k32)
 TILE_ROWS = 16        # rows of a tile (the m)
@@ -71,18 +71,17 @@ MAX_LIMBS = 1 << 16
 assert K_CHUNK <= S32_TERMS
 
 # the packed step geometry (csrc/step.cu, whose launch refuses a block
-# of more threads or shared memory): at most this many threads a block;
-# (widest window, warps a team) from the narrowest; the widest window
-# packed at all, and the widest packed under 1.5 instances an SM
-PACK_THREADS = 256
+# of more threads or shared memory): (widest window, warps a team) from
+# the narrowest; the widest window packed at all, and the widest packed
+# under 1.5 instances an SM
 PACK_TEAMS = ((272, 1), (528, 2), (1040, 4))
 PACK_WINDOW = PACK_TEAMS[-1][0]
 PACK_WINDOW_SPARSE = 144
 
-# the cluster size each wrapper's last launch used (after the launch's
-# residency check), by kernel name
+# the cluster size each kernel's last launch used (after the launch's
+# residency check), and its instances a block (1 where clustered), by
+# kernel name (`fused._launch` records both)
 last_cluster: dict[str, int] = {}
-# instances a block of each step kernel's last launch: 1 where clustered
 last_lanes: dict[str, int] = {}
 
 
@@ -93,31 +92,13 @@ def check_contract(na: int, nb: int) -> None:
                          f"{MAX_LIMBS}-limb column-sum contract")
 
 
-def check_staging(device, impl: str | None, width: int, what: str,
-                  need) -> None:
-    """Raise ValueError, before any launch, where impl's kernels cannot
-    run `what` at a working width of `width` limbs on `device`.  Only
-    cuda_fused and cuda_batched stage their operands in shared memory:
-    on CUDA a width past the column-sum contract (MAX_LIMBS) raises
-    before any library is built, then `need(libs, impl)`, the staging
-    bytes the kernel libraries report, must fit DYNAMIC_SMEM_BYTES.
-    cuda_pairs, blocked and the CPU have no cap; nothing reroutes on
-    its own."""
-    impl = check_impl(impl)
-    if (torch.device(device).type != "cuda"
-            or impl not in ("cuda_fused", "cuda_batched")):
-        return
-    if width > MAX_LIMBS:
-        raise ValueError(
-            f"{what} needs a {width}-limb working width, past the {impl} "
-            f"kernels' {MAX_LIMBS}-limb column-sum contract "
-            f"(impl='cuda_pairs' has no such cap)")
-    n = need(build.build_all(), impl)
+def check_staging(n: int, what: str) -> int:
+    """n, the shared memory a launch of `what` stages; raises ValueError
+    where that exceeds DYNAMIC_SMEM_BYTES."""
     if n > DYNAMIC_SMEM_BYTES:
-        raise ValueError(
-            f"{what} (working width {width} limbs): the {impl} kernels "
-            f"stage {n} bytes, more than shared memory holds "
-            f"(impl='cuda_pairs' has no such cap)")
+        raise ValueError(f"{what} stages {n} bytes, more than shared "
+                         f"memory holds")
+    return n
 
 
 def floor4(k: int) -> int:
@@ -171,11 +152,12 @@ class StepPlan(NamedTuple):
     lanes: int
 
 
-def step_plan(win: int, batch: int, sms: int,
-              lane_bytes: int) -> StepPlan | None:
+def step_plan(win: int, batch: int, sms: int, lane_bytes: int,
+              threads: int) -> StepPlan | None:
     """The packed geometry of a powdiff or update launch, or None for the
     clustered one; `lane_bytes` is the shared memory of one packed
-    instance at this window (the step library's `step_lane_bytes(win)`).
+    instance at this window (the step library's `step_lane_bytes(win)`),
+    `threads` the most of a packed block (its `step_pack_threads()`).
     Packed where an instance's cluster would be one block (batch >= sms)
     and the window is at most PACK_WINDOW limbs: there a clustered launch
     costs about the same at every window (a serial chain of block and
@@ -185,7 +167,7 @@ def step_plan(win: int, batch: int, sms: int,
     PACK_WINDOW_SPARSE sooner than a team does, so only windows up to
     that pack there.  A team is one warp up to 272 limbs, two up to 528
     and four above, where the product grows; blocks hold as many teams as
-    PACK_THREADS threads and DYNAMIC_SMEM_BYTES allow, and nothing packs
+    `threads` and DYNAMIC_SMEM_BYTES allow, and nothing packs
     where one instance does not fit.  (On an H100 at 2^15-2^18 bits, from
     132 to 131,072 instances: PERF.md.)"""
     if cluster_size(batch, sms) != 1 or win > PACK_WINDOW:
@@ -193,7 +175,7 @@ def step_plan(win: int, batch: int, sms: int,
     if 2 * batch < 3 * sms and win > PACK_WINDOW_SPARSE:
         return None
     warps = next(w for top, w in PACK_TEAMS if win <= top)
-    lanes = min(PACK_THREADS // (32 * warps), DYNAMIC_SMEM_BYTES // lane_bytes)
+    lanes = min(threads // (32 * warps), DYNAMIC_SMEM_BYTES // lane_bytes)
     return StepPlan(warps, lanes) if lanes else None
 
 

@@ -16,11 +16,14 @@ The TPU's two kernel generations computed the same functions (they
 differed only in how the product fit VMEM); on Hopper one kernel per
 stage covers every width.  All four compute their products as int8
 digit GEMMs with an instance spread over a cluster
-(`csrc/digitmma.cuh`, `kernels/digitmma.py`); their wrappers ask the
-library whether a width's staging fits shared memory
-(`step_smem_bytes`, `correct_smem_bytes`, `barrett_smem_bytes`), and
-record the cluster size each launch used in `digitmma.last_cluster`.
-The step kernels also run packed, many instances a block
+(`csrc/digitmma.cuh`, `kernels/digitmma.py`).  Each has one fit
+function (`step_fit`, `correct_fit`, `barrett_fit`) that asks the
+library whether a width's staging fits shared memory; its wrapper calls
+it on every launch, and the ops' width checks before a division or a
+modulus runs.  Every wrapper here and in `bigmul.py` launches through
+`_launch`, which owns the scratch, the cluster size (recorded in
+`digitmma.last_cluster`), the device scope, the error check and the
+launch count.  The step kernels also run packed, many instances a block
 (`digitmma.step_plan`; `digitmma.last_lanes`).
 `powdiff_reference`,
 `update_reference`, `step_reference`, `correct_reference` and
@@ -200,42 +203,72 @@ def _scalars(batch: int, device, **cols) -> dict[str, torch.Tensor]:
     return out
 
 
+def _launch(lib, kernel: str, like: torch.Tensor, ts, dims, *,
+            scratch: int | None = None, plan: D.StepPlan | None = None):
+    """One launch of the library's `<kernel>_launch(*ptrs, *dims,
+    stream)` on `like`'s card, checked and counted; ptrs are the device
+    pointers of the tensors `ts` (None passes NULL).  A digit-GEMM kernel
+    gives `scratch`, its scratch bytes an instance, and takes batch *
+    scratch bytes of global scratch after ts (NULL under a packed step
+    `plan`) and the cluster size after dims: `digitmma.cluster_size(batch,
+    sms)` in, the one the launch used out (`digitmma.last_cluster`; the
+    plan's lanes, 1 clustered, in `digitmma.last_lanes`)."""
+    cluster = None
+    if scratch is not None:
+        batch, dev = like.shape[0], like.device
+        cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(dev)))
+        ts = (*ts, None if plan else torch.empty(
+            batch * scratch, dtype=torch.uint8, device=dev))
+        dims = (*dims, ctypes.byref(cluster))
+    ptrs = [None if t is None else t.data_ptr() for t in ts]
+    with build.on_device(like) as stream:
+        err = getattr(lib, f"{kernel}_launch")(*ptrs, *dims, stream)
+    build.check(err, f"{kernel} kernel")
+    build.count(kernel)
+    if cluster is not None:
+        D.last_cluster[kernel] = cluster.value
+        D.last_lanes[kernel] = plan.lanes if plan else 1
+
+
+def step_fit(win: int) -> int:
+    """The step kernels' staging bytes at a `win`-limb window; raises
+    ValueError past the column-sum contract, before the library is
+    built, or past shared memory (`digitmma.check_staging`)."""
+    D.check_contract(win, win)
+    return D.check_staging(build.lib("step").step_smem_bytes(win),
+                           f"a {win}-limb window")
+
+
+def correct_fit(full_w: int) -> int:
+    """The finalization kernel's staging bytes at width `full_w`; raises
+    as `step_fit` does."""
+    D.check_contract(full_w, full_w)
+    return D.check_staging(build.lib("correct").correct_smem_bytes(full_w),
+                           f"a {full_w}-limb finalization")
+
+
+def barrett_fit(nx: int, nv: int, full_w: int) -> int:
+    """The Barrett kernel's staging bytes for x of `nx` and v of `nv`
+    limbs at width `full_w`; raises as `step_fit` does."""
+    D.check_contract(full_w, nv)
+    return D.check_staging(
+        build.lib("barrett").barrett_smem_bytes(nx, nv, full_w),
+        f"a {full_w}-limb Barrett window")
+
+
 def _step_lib(win: int, batch: int, full_w: int, **arrs):
-    """Check a step launch's limb operands and window; returns the step
-    library once it says the window's staging fits shared memory."""
+    """Check a step launch's limb operands and window, and that its
+    staging fits shared memory; returns the step library and the
+    launch's packed `digitmma.step_plan` (None: clustered)."""
     if not 1 <= win <= full_w:
         raise ValueError(f"window {win} outside [1, {full_w}]")
     for name, a in arrs.items():
         check_limbs(name, a, (batch, full_w))
-    D.check_contract(win, win)
+    step_fit(win)
     lib = build.lib("step")
-    if lib.step_smem_bytes(win) > D.DYNAMIC_SMEM_BYTES:
-        raise ValueError(f"a {win}-limb window exceeds shared memory")
-    return lib
-
-
-def _step_launch(lib, kernel: str, batch: int, full_w: int, win: int,
-                 like: torch.Tensor, *ptrs) -> None:
-    """One launch of a step kernel on `like`'s card: packed where
-    `digitmma.step_plan` gives a plan (no global scratch), else on
-    clusters of `digitmma.cluster_size(batch, sms)` blocks per instance
-    with a per-instance scratch."""
-    sms = D.device_sms(like.device)
-    plan = D.step_plan(win, batch, sms, lib.step_lane_bytes(win))
-    cluster = ctypes.c_int(D.cluster_size(batch, sms))
-    scratch = None
-    if plan is None:
-        scratch = torch.empty(batch * lib.step_scratch_bytes(win),
-                              dtype=torch.uint8, device=like.device)
-    warps, lanes = plan or (0, 1)
-    with build.on_device(like) as stream:
-        err = getattr(lib, f"{kernel}_launch")(
-            *ptrs, None if scratch is None else scratch.data_ptr(), batch,
-            full_w, win, warps, lanes, ctypes.byref(cluster), stream)
-    build.check(err, f"{kernel} kernel")
-    build.count(kernel)
-    D.last_cluster[kernel] = cluster.value
-    D.last_lanes[kernel] = lanes
+    sms = D.device_sms(next(iter(arrs.values())).device)
+    return lib, D.step_plan(win, batch, sms, lib.step_lane_bytes(win),
+                            lib.step_pack_threads())
 
 
 def powdiff_cuda(v, w, hpd, lpd, s, *, win: int):
@@ -249,15 +282,15 @@ def _powdiff_launch(v, w, hpd, lpd, s, *, win: int):
     """The powdiff launch; the sign stays (batch,) int32 0/1, as
     `update_cuda` takes it."""
     batch, full_w = v.shape
-    lib = _step_lib(win, batch, full_w, v=v, w=w)
+    lib, plan = _step_lib(win, batch, full_w, v=v, w=w)
     sc = _scalars(batch, v.device, hpd=hpd, lpd=lpd, s=s)
     sign = torch.empty(batch, dtype=torch.int32, device=v.device)
     x = torch.empty_like(v)
     if batch:
-        _step_launch(lib, "powdiff", batch, full_w, win, v,
-                     v.data_ptr(), w.data_ptr(), sc["hpd"].data_ptr(),
-                     sc["lpd"].data_ptr(), sc["s"].data_ptr(),
-                     sign.data_ptr(), x.data_ptr())
+        _launch(lib, "powdiff", v,
+                (v, w, sc["hpd"], sc["lpd"], sc["s"], sign, x),
+                (batch, full_w, win, *(plan or (0, 1))),
+                scratch=lib.step_scratch_bytes(win), plan=plan)
     return sign, x
 
 
@@ -265,14 +298,14 @@ def update_cuda(w, x, sign, h, m, active, *, win: int):
     """Kernel of `update_reference`: the new full-width iterate.  `sign`
     is bool or int32 0/1 (int32 costs no conversion)."""
     batch, full_w = w.shape
-    lib = _step_lib(win, batch, full_w, w=w, x=x)
+    lib, plan = _step_lib(win, batch, full_w, w=w, x=x)
     sc = _scalars(batch, w.device, sign=sign, h=h, m=m, act=active)
     out = torch.empty_like(w)
     if batch:
-        _step_launch(lib, "update", batch, full_w, win, w,
-                     w.data_ptr(), x.data_ptr(), sc["sign"].data_ptr(),
-                     sc["h"].data_ptr(), sc["m"].data_ptr(),
-                     sc["act"].data_ptr(), out.data_ptr())
+        _launch(lib, "update", w,
+                (w, x, sc["sign"], sc["h"], sc["m"], sc["act"], out),
+                (batch, full_w, win, *(plan or (0, 1))),
+                scratch=lib.step_scratch_bytes(win), plan=plan)
     return out
 
 
@@ -289,27 +322,14 @@ def correct_cuda(u, v, si, *, h):
     batch, full_w = u.shape
     for name, a in (("u", u), ("v", v), ("si", si)):
         check_limbs(name, a, (batch, full_w))
-    D.check_contract(full_w, full_w)
+    correct_fit(full_w)
     lib = build.lib("correct")
-    if lib.correct_smem_bytes(full_w) > D.DYNAMIC_SMEM_BYTES:
-        raise ValueError(f"a {full_w}-limb finalization exceeds shared "
-                         f"memory")
     sc = _scalars(batch, u.device, h=h)
     q = torch.empty_like(u)
     r = torch.empty_like(u)
     if batch:
-        scratch = torch.empty(batch * lib.correct_scratch_bytes(full_w),
-                              dtype=torch.uint8, device=u.device)
-        cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(u.device)))
-        with build.on_device(u) as stream:
-            err = lib.correct_launch(
-                u.data_ptr(), v.data_ptr(), si.data_ptr(),
-                sc["h"].data_ptr(), q.data_ptr(), r.data_ptr(),
-                scratch.data_ptr(), batch, full_w, ctypes.byref(cluster),
-                stream)
-        build.check(err, "correct kernel")
-        build.count("correct")
-        D.last_cluster["correct"] = cluster.value
+        _launch(lib, "correct", u, (u, v, si, sc["h"], q, r), (batch, full_w),
+                scratch=lib.correct_scratch_bytes(full_w))
     return q, r
 
 
@@ -333,24 +353,13 @@ def barrett_cuda(x, mu, v, *, h: int):
             raise ValueError(f"{name}: {a.shape[0]} rows for {batch} lanes")
         strides[name] = a.shape[-1] if a.ndim == 2 else 0
     check_limbs("x", x)
-    D.check_contract(full_w, v.shape[-1])
+    barrett_fit(nx, v.shape[-1], full_w)
     lib = build.lib("barrett")
-    if lib.barrett_smem_bytes(nx, v.shape[-1], full_w) > D.DYNAMIC_SMEM_BYTES:
-        raise ValueError(f"a {full_w}-limb Barrett window exceeds shared "
-                         f"memory")
     r = torch.empty(batch, full_w, dtype=torch.int32, device=x.device)
     if batch:
-        scratch = torch.empty(batch * lib.barrett_scratch_bytes(full_w),
-                              dtype=torch.uint8, device=x.device)
-        cluster = ctypes.c_int(D.cluster_size(batch, D.device_sms(x.device)))
-        with build.on_device(x) as stream:
-            err = lib.barrett_launch(
-                x.data_ptr(), mu.data_ptr(), v.data_ptr(), r.data_ptr(),
-                scratch.data_ptr(), batch, nx, strides["mu"], v.shape[-1],
-                strides["v"], full_w, h, ctypes.byref(cluster), stream)
-        build.check(err, "barrett kernel")
-        build.count("barrett")
-        D.last_cluster["barrett"] = cluster.value
+        _launch(lib, "barrett", x, (x, mu, v, r),
+                (batch, nx, strides["mu"], v.shape[-1], strides["v"],
+                 full_w, h), scratch=lib.barrett_scratch_bytes(full_w))
     return r
 
 
@@ -384,14 +393,7 @@ def prologue_cuda(v, *, h=None, u=None):
     scal = torch.empty(5, batch, dtype=torch.int32, device=v.device)
     flags = torch.empty(3, batch, dtype=torch.bool, device=v.device)
     if batch:
-        with build.on_device(v) as stream:
-            err = build.lib("prologue").prologue_launch(
-                u.data_ptr() if div else None, v.data_ptr(),
-                None if div else h.data_ptr(),
-                uw.data_ptr() if div else None,
-                vw.data_ptr() if div else None, vl.data_ptr(), w.data_ptr(),
-                scal.data_ptr(), flags.data_ptr(), batch, in_w, width,
-                stream)
-        build.check(err, "prologue kernel")
-        build.count("prologue")
+        _launch(build.lib("prologue"), "prologue", v,
+                (u, v, None if div else h, uw, vw if div else None, vl, w,
+                 scal, flags), (batch, in_w, width))
     return uw, vw, vl, w, scal, flags

@@ -84,6 +84,28 @@ def check_impl(name: str | None) -> str:
     return name
 
 
+def check_fit(device, impl: str | None, width: int, what: str,
+              **fits) -> None:
+    """Raise ValueError, before any launch, where impl's kernels cannot
+    run `what` at a working width of `width` limbs on `device`.  Only
+    cuda_fused and cuda_batched stage their operands in shared memory:
+    on CUDA `fits[impl]()` runs the fit functions of the kernels the op
+    launches under impl (`fused.step_fit` & co.), which raise past the
+    column-sum contract (`digitmma.MAX_LIMBS`), before any library is
+    built, or where their staging exceeds shared memory.  cuda_pairs,
+    blocked and the CPU have no cap; nothing reroutes on its own."""
+    impl = check_impl(impl)
+    if (torch.device(device).type != "cuda"
+            or impl not in ("cuda_fused", "cuda_batched")):
+        return
+    try:
+        fits[impl]()
+    except ValueError as exc:
+        raise ValueError(f"{what} (working width {width} limbs) under "
+                         f"{impl}: {exc} (impl='cuda_pairs' has no such "
+                         f"cap)") from None
+
+
 def fallback_impl(name: str) -> str | None:
     """The next impl down the degradation ladder, or None when `name`
     is terminal ("blocked" runs torch ops only)."""
@@ -246,8 +268,8 @@ def mulmod(u: torch.Tensor, v: torch.Tensor, L, out_width: int,
     return A.mask_below(mul_batch(u, v, out_width, impl), L)
 
 
-def _fused(impl, *ts) -> bool:
-    """Whether the fused kernel runs: impl cuda_fused on CUDA tensors.
+def runs_fused(impl, *ts) -> bool:
+    """Whether the fused kernels run: impl cuda_fused on CUDA tensors.
     Every other case runs the plain composition with impl's product."""
     return check_impl(impl) == "cuda_fused" and _check_device(*ts) == "cuda"
 
@@ -263,7 +285,7 @@ def fused_step(v, w, *, h, m, l, s, active, g: int, win: int,
     product launches under cuda_batched and cuda_pairs)."""
     from . import fused
     with T.scope("fused_step"):
-        if _fused(impl, v, w):
+        if runs_fused(impl, v, w):
             return fused.step_cuda(v, w, h=h, m=m, l=l, s=s, active=active,
                                    g=g, win=win)
         return fused.step_reference(v, w, h=h, m=m, l=l, s=s,
@@ -277,7 +299,7 @@ def fused_correct(u, v, si, *, h, impl: str | None = None):
     composition with impl's product (two products)."""
     from . import fused
     with T.scope("fused_correct"):
-        if _fused(impl, u, v, si):
+        if runs_fused(impl, u, v, si):
             return fused.correct_cuda(u, v, si, h=h)
         return fused.correct_reference(u, v, si, h=h, mul=product(impl))
 
@@ -289,6 +311,6 @@ def fused_barrett(x, mu, v, *, h: int, impl: str | None = None):
     One kernel launch under cuda_fused on CUDA, else the plain
     composition with impl's product (two products)."""
     from . import fused
-    if _fused(impl, x, mu, v):
+    if runs_fused(impl, x, mu, v):
         return fused.barrett_cuda(x, mu, v, h=h)
     return fused.barrett_reference(x, mu, v, h=h, mul=product(impl))

@@ -184,8 +184,9 @@ def test_step_kernels_packed_match_plain_and_clustered(dev, monkeypatch,
     inactive lanes and the dropped-limb floor correction."""
     from repro_torch.kernels import digitmma as D
     batch = 301
+    lib = build.lib("step")
     plan = D.step_plan(win, batch, D.device_sms(dev),
-                       build.lib("step").step_lane_bytes(win))
+                       lib.step_lane_bytes(win), lib.step_pack_threads())
     assert plan is not None and batch % plan.lanes
     st = _step_lanes(batch, full_w, win, full_w + win, dev)
     pd = (st["v"], st["w"], st["hpd"], st["lpd"], st["s"])
@@ -223,7 +224,8 @@ def test_packed_lane_bytes_match_the_library(dev):
         got = lib.step_lane_bytes(win)
         assert got >= 16 + 16 * win + 4 * win
         assert got % 16 == 0
-        plan = D.step_plan(win, 16384, D.device_sms(dev), got)
+        plan = D.step_plan(win, 16384, D.device_sms(dev), got,
+                           lib.step_pack_threads())
         assert plan is not None and plan.lanes * got <= D.DYNAMIC_SMEM_BYTES
 
 
@@ -239,8 +241,8 @@ def test_divmod_with_packed_steps_exact_with_launch_count(dev, m):
     batch = (3 * sms + 1) // 2
     lib = build.lib("step")
     for win in (CM.refine_window(0, m + S.PAD), D.PACK_WINDOW):
-        assert D.step_plan(win, batch, sms,
-                           lib.step_lane_bytes(win)) is not None
+        assert D.step_plan(win, batch, sms, lib.step_lane_bytes(win),
+                           lib.step_pack_threads()) is not None
     rnd = random.Random(m)
     us = [rnd.getrandbits(16 * m) for _ in range(batch)]
     vs = [rnd.getrandbits(16 * rnd.randint(1, m // 2)) | 1

@@ -122,6 +122,11 @@ PLAN_WINDOWS = [1, 32, 48, 80, 144, 145, 272, 273, 528, 529, 1040, 1041,
                 2056, 2064, 32778]
 
 
+# a stand-in for the step library's step_pack_threads() (its
+# kPackThreads, which the card tests pass to step_plan)
+PACK_THREADS = 256
+
+
 def _lane_bytes(win):
     """A stand-in for the step library's step_lane_bytes (checked against
     the library on the card): team slots, the 64-bit column sums and both
@@ -142,7 +147,7 @@ def test_step_plan_engages_at_cluster_one_and_small_windows(win, batch,
     272 limbs (Refine iterations 0-7 at every width); under 1.5 instances
     an SM only up to PACK_WINDOW_SPARSE; never below one lane per SM (one
     lane runs on a cluster of 8)."""
-    plan = D.step_plan(win, batch, sms, _lane_bytes(win))
+    plan = D.step_plan(win, batch, sms, _lane_bytes(win), PACK_THREADS)
     one_block = D.cluster_size(batch, sms) == 1
     assert one_block == (batch >= sms)
     top = D.PACK_WINDOW if 2 * batch >= 3 * sms else D.PACK_WINDOW_SPARSE
@@ -158,12 +163,13 @@ def test_step_plan_fits_the_block(batch):
     has a named barrier of its own (ids 1-15)."""
     top = D.PACK_WINDOW if 2 * batch >= 3 * D.SMS else D.PACK_WINDOW_SPARSE
     for win in range(1, top + 1):
-        plan = D.step_plan(win, batch, D.SMS, _lane_bytes(win))
+        plan = D.step_plan(win, batch, D.SMS, _lane_bytes(win),
+                           PACK_THREADS)
         assert plan is not None
         assert plan.warps == next(w for top, w in D.PACK_TEAMS
                                   if win <= top)
         assert plan.warps in (1, 2, 4) and plan.lanes >= 1
-        assert 32 * plan.warps * plan.lanes <= D.PACK_THREADS <= 1024
+        assert 32 * plan.warps * plan.lanes <= PACK_THREADS <= 1024
         assert plan.warps == 1 or plan.lanes <= 15
         assert plan.lanes * _lane_bytes(win) <= D.DYNAMIC_SMEM_BYTES
 
@@ -175,7 +181,7 @@ def test_step_plan_sizes_blocks_by_the_lane_bytes_given(lane_bytes, lanes):
     """Teams a block follow the shared memory of one instance that the
     caller passes (the library's own figure); where one instance does not
     fit, the launch stays clustered."""
-    plan = D.step_plan(32, 16384, D.SMS, lane_bytes)
+    plan = D.step_plan(32, 16384, D.SMS, lane_bytes, PACK_THREADS)
     assert (plan.lanes if plan else 0) == lanes
 
 

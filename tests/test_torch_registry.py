@@ -257,6 +257,144 @@ def test_width_cap_dispatch():
         MA.check_width(cuda, too_wide, impl)
 
 
+class _StubLibs:
+    """Stand-ins for the kernel libraries' staging sizes (two bytes a
+    limb per staged operand plus a fixed part, as csrc/*.cu size them),
+    so that the fit functions and the width checks run without a card;
+    `asked` records every library looked up."""
+
+    def __init__(self):
+        self.asked = []
+
+    def __call__(self, name):
+        self.asked.append(name)
+        return self
+
+    @staticmethod
+    def step_smem_bytes(win):
+        return 4 * win + 400
+
+    @staticmethod
+    def correct_smem_bytes(w):
+        return 6 * w + 64
+
+    @staticmethod
+    def barrett_smem_bytes(nx, nv, w):
+        return 2 * (nx + nv + w) + 64
+
+    @staticmethod
+    def mul_batch_smem_bytes(wu, wv, out):
+        return 2 * (min(wu, out) + min(wv, out)) + 64
+
+
+def _op_fits(op, impl, m):
+    """Each kernel's fit function at the widths op runs it under impl
+    on the card, as the docstrings of the width checks list them."""
+    from repro_torch.kernels import bigmul, fused as F
+    if op == "division":
+        w = m + S.PAD
+        if impl == "cuda_fused":
+            return [lambda: F.step_fit(w), lambda: F.correct_fit(w)]
+        return [lambda: bigmul.mul_batch_fit(w, w, 2 * w)]
+    w = MA.barrett_width(m)
+    if impl == "cuda_fused":
+        return [lambda: F.step_fit(w), lambda: F.barrett_fit(2 * m, m, w),
+                lambda: bigmul.mul_batch_fit(m, m, 2 * m)]
+    return [lambda: bigmul.mul_batch_fit(w, w, 2 * w)]
+
+
+def _fits(fits) -> bool:
+    try:
+        for fit in fits:
+            fit()
+        return True
+    except ValueError:
+        return False
+
+
+@pytest.mark.parametrize("impl", ["cuda_fused", "cuda_batched"])
+@pytest.mark.parametrize("op", ["division", "modulus"])
+def test_width_checks_agree_with_the_fit_functions(monkeypatch, op, impl):
+    """With stand-in libraries: at the widest m the kernels' fit
+    functions take (their cap, found by bisection), shinv.check_width
+    or modarith.check_width passes, and at cap + 1 it raises the same
+    refusal the failing fit function raises, before any launch."""
+    from repro_torch.kernels import build
+    stub = _StubLibs()
+    monkeypatch.setattr(build, "lib", stub)
+    check = S.check_width if op == "division" else MA.check_width
+    from repro_torch.kernels import digitmma as D
+    # fits at lo, not at hi, the widest m inside the column-sum contract
+    lo, hi = 1, (D.MAX_LIMBS - S.PAD if op == "division"
+                 else (D.MAX_LIMBS - MA.barrett_width(0)) // 2)
+    assert _fits(_op_fits(op, impl, lo))
+    assert not _fits(_op_fits(op, impl, hi))
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _fits(_op_fits(op, impl, mid)) else (lo, mid)
+    cuda = torch.device("cuda")
+    check(cuda, lo, impl)
+    if impl == "cuda_fused":
+        check(cuda, lo)                 # None is the default, cuda_fused
+    for fit in _op_fits(op, impl, hi):
+        try:
+            fit()
+        except ValueError as exc:
+            refusal = str(exc)
+            break
+    with pytest.raises(ValueError, match="shared memory") as got:
+        check(cuda, hi, impl)
+    assert refusal in str(got.value)
+    assert "(impl='cuda_pairs' has no such cap)" in str(got.value)
+    assert stub.asked
+
+
+@pytest.mark.parametrize("op", ["division", "modulus"])
+def test_width_checks_never_cap_unstaged_impls(monkeypatch, op):
+    """cuda_pairs and blocked on the card, and every impl on the CPU,
+    take any width below the column-sum contract without asking a
+    kernel library, however much it would stage."""
+    from repro_torch.kernels import build
+    stub = _StubLibs()
+    monkeypatch.setattr(build, "lib", stub)
+    monkeypatch.setattr(stub, "step_smem_bytes", lambda win: 1 << 30)
+    check = S.check_width if op == "division" else MA.check_width
+    for impl in ("cuda_pairs", "blocked"):
+        check(torch.device("cuda"), 30000, impl)
+    for impl in (*K.IMPLS, None):
+        check("cpu", 30000, impl)
+    assert stub.asked == []
+    with pytest.raises(ValueError, match="shared memory"):
+        check(torch.device("cuda"), 8, "cuda_fused")
+
+
+@pytest.mark.parametrize("fit,staged", [
+    ("step_fit", "step_smem_bytes"), ("correct_fit", "correct_smem_bytes"),
+    ("barrett_fit", "barrett_smem_bytes"),
+    ("mul_batch_fit", "mul_batch_smem_bytes")])
+def test_fit_function_holds_the_staging_to_shared_memory(monkeypatch, fit,
+                                                         staged):
+    """Each kernel's fit function gives the bytes its library reports
+    up to digitmma.DYNAMIC_SMEM_BYTES and raises ValueError one byte
+    past it; past the column-sum contract it raises without asking the
+    library."""
+    from repro_torch.kernels import bigmul, build, digitmma as D, fused
+    stub = _StubLibs()
+    monkeypatch.setattr(build, "lib", stub)
+    fn = getattr(bigmul if fit == "mul_batch_fit" else fused, fit)
+    nargs = 3 if fit in ("barrett_fit", "mul_batch_fit") else 1
+    for n in (0, D.DYNAMIC_SMEM_BYTES):
+        monkeypatch.setattr(stub, staged, lambda *a, n=n: n)
+        assert fn(*[8] * nargs) == n
+    monkeypatch.setattr(stub, staged, lambda *a: D.DYNAMIC_SMEM_BYTES + 1)
+    with pytest.raises(ValueError, match="more than shared memory holds"):
+        fn(*[8] * nargs)
+    asked = len(stub.asked)
+    with pytest.raises(ValueError, match="column-sum contract"):
+        fn(*[D.MAX_LIMBS + 1] * nargs)
+    assert len(stub.asked) == asked
+
+
 # ---------------------------------------------------------------------------
 # cost model per impl
 # ---------------------------------------------------------------------------
