@@ -1067,15 +1067,23 @@ class Smoke:
     def check_kernels(self):
         torch, F, K = self.torch, self.F, self.K
         B = 1 << 16
-        # the standalone product at 2^15 bits and at 2^18 bits
-        for wu, wo, batch in ((2056, 4112, 64), (16384, 32768, 2)):
+        # the standalone product at 2^15 bits and at 2^18 bits, and batch
+        # GCD's 2^17-bit square on a lane an SM (the deep main loop)
+        for wu, wo, batch in ((2056, 4112, 64), (16384, 32768, 2),
+                              (4096, 8192, self.sms)):
             xs, ys = operands(wu, batch, wu)
             u, v = self.tensor(xs, wu), self.tensor(ys, wu)
+            self.D.deep_blocks("mul", self.dev)
             got = K.mul_batch(u, v, wo)
+            deep = self.D.deep_blocks("mul", self.dev)
             self.compare("mul_batch", (got,), (K.mul_plain(u, v, wo),))
             for x, y, z in zip(xs[:3], ys[:3], self.bi.batch_to_ints(got)):
                 assert z == (x * y) % B ** wo
-            log(f"mul_batch {wu}x{wu}->{wo} limbs, batch {batch}: exact")
+            if batch >= self.sms:
+                self.expect(f"mul_batch {wu} limbs x {batch} deep blocks",
+                            deep, batch)
+            log(f"mul_batch {wu}x{wu}->{wo} limbs, batch {batch}: exact, "
+                f"{deep} deep block products")
         # synthetic Refine states at windows of the 2^15-bit schedule
         full_w = 2048 + self.S.PAD
         for win in (32, 528, 1040, 2056):
@@ -1121,18 +1129,43 @@ class Smoke:
             log(f"powdiff+update synthetic states, win {win}, batch "
                 f"{batch}, cluster {cs}, "
                 f"{self.D.last_lanes['update']} lanes a block: exact")
-        # the finalization at W = 2056 around the true shifted inverse
-        W = full_w
-        rnd = random.Random(5)
-        us, vs = operands(W - 8, 32, 7)
-        hs = [-(-x.bit_length() // 16) for x in us]
-        sis = [max(0, B ** h // y + rnd.randint(-1, 1)) % B ** W if y else 0
-               for h, y in zip(hs, vs)]
-        u, v, si = self.tensor(us, W), self.tensor(vs, W), self.tensor(sis, W)
-        h = torch.tensor(hs, dtype=torch.int32, device=self.dev)
-        self.compare("correct", F.correct_cuda(u, v, si, h=h),
-                     F.correct_reference(u, v, si, h=h))
-        log(f"correct W {W}: exact")
+        # the 2^18-bit full window on a lane an SM: cluster 1, the deep
+        # main loop wherever a lane's product is long
+        fw = 16384 + self.S.PAD
+        st = self.synthetic_states(fw, fw, self.sms, fw)
+        self.D.deep_blocks("step", self.dev)
+        sk, xk = F.powdiff_cuda(st["v"], st["w"], st["hpd"], st["lpd"],
+                                st["s"], win=fw)
+        args = (st["w"], xk, sk, st["h"], st["m"], st["active"])
+        out = F.update_cuda(*args, win=fw)
+        deep = self.D.deep_blocks("step", self.dev)
+        self.compare("powdiff", (sk, xk), F.powdiff_reference(
+            st["v"], st["w"], st["hpd"], st["lpd"], st["s"], win=fw))
+        self.compare("update", (out,), (F.update_reference(*args, win=fw),))
+        self.expect(f"most step products deep at W {fw}, batch {self.sms}",
+                    deep > self.sms, True)
+        log(f"powdiff+update synthetic states, win {fw}, batch {self.sms}: "
+            f"exact, {deep} of {2 * self.sms} block products deep")
+        # the finalization around the true shifted inverse at W = 2056,
+        # and at 2^18 bits on a lane an SM (the deep main loop)
+        for W, batch in ((full_w, 32), (16384 + self.S.PAD, self.sms)):
+            rnd = random.Random(5)
+            us, vs = operands(W - 8, batch, 7)
+            hs = [-(-x.bit_length() // 16) for x in us]
+            sis = [max(0, B ** h // y + rnd.randint(-1, 1)) % B ** W if y
+                   else 0 for h, y in zip(hs, vs)]
+            u, v = self.tensor(us, W), self.tensor(vs, W)
+            si = self.tensor(sis, W)
+            h = torch.tensor(hs, dtype=torch.int32, device=self.dev)
+            self.D.deep_blocks("correct", self.dev)
+            got = F.correct_cuda(u, v, si, h=h)
+            deep = self.D.deep_blocks("correct", self.dev)
+            self.compare("correct", got, F.correct_reference(u, v, si, h=h))
+            if batch >= self.sms:
+                self.expect(f"most correct products deep at W {W}, batch "
+                            f"{batch}", deep > batch, True)
+            log(f"correct W {W}, batch {batch}: exact, {deep} of "
+                f"{2 * batch} block products deep")
         # real states: every step and finalization of each precision
         for bits, batch in PRECISIONS:
             m = bits // 16

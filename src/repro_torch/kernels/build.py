@@ -154,6 +154,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "barrett_launch": [P, P, P, P, P, I, I, I, I, I, I, I, P, P],
         "barrett_scratch_bytes": [I],
         "barrett_smem_bytes": [I, I, I],
+        "digit_deep_blocks": [P, P],
         "mul_pairs_launch": [P, P, P, P, I, I, I, I, I, I, I, P],
         "mul_pairs_tile": [],
         "span_mark_launch": [P, I, P],

@@ -23,8 +23,16 @@
 // the instance's global scratch, the cluster resolves the carries of p
 // together, and each block writes its limbs of q into every block's
 // shared memory over distributed shared memory; then q * v the same
-// way.  Every select is per instance and a cluster is one instance, so
-// every block takes the same branch and meets the same barriers: the
+// way.  Both products run digit_product's main loop, deep where a
+// block's share of the product is long enough (digitmma.cuh): at 2^18
+// bits x 16,384 on an H100 they were 89% of a block under the pair
+// loop and are 75% under the deep one (3.55M -> 1.32M cycles a block;
+// 139 -> 59 ms a launch), the rest the resolves, comparisons and
+// chains.  At 2^15 most blocks' shares of the products, clipped to the
+// lanes' lengths, hold fewer than kDeep * kWarps row tiles, so they
+// keep pairs and the fixed cost of one block a lane rules (33 ms).
+// Every select is per instance and a cluster is one instance, so every
+// block takes the same branch and meets the same barriers: the
 // comparisons run as cluster_lt, and mm - v, u - mm, r - v and q +/- 1
 // as cluster_chain, each block over its share of the limbs.  q is kept
 // as read from p, and delta = (r >= v) - (u < mm) is applied once, as q

@@ -17,9 +17,41 @@
 // shift.  One mma.sync.m16n8k32.s32.u8.u8.s32 covers 16 rows x 8
 // columns x 32 digits of k (1,024 limb products).  Each row tile's k
 // range is clipped to where its window of a is nonzero.  A warp sweeps
-// kGroup row tiles per B fragment (one where a block has no more tiles
-// than warps); the heaviest groups start first.  The s32 sums are exact over 33,025
-// terms and are flushed into 64-bit sums every kKChunk digits of k.
+// a group of row tiles per B fragment; the heaviest groups start first.
+// The s32 sums are exact over 33,025 terms and are flushed into 64-bit
+// sums every kKChunk digits of k.
+//
+// The main loop, in two forms; digit_product picks one for each block
+// from its share of the product:
+//   pair (sweep_group): kGroup tiles share a B fragment (one tile where a
+//     block has no more tiles than warps), and every A word is loaded
+//     where it is used: 6 shared loads an mma.
+//   deep (sweep_deep): kDeep tiles share a B fragment, and each lane
+//     keeps A's Toeplitz repeats in a ring of kRing registers, so that a
+//     steady step loads 2 A words and the 4-word B fragment for kDeep
+//     mma (1.5 shared loads an mma, kDeep accumulator chains); the tiles'
+//     ragged k ends run one step at a time.
+// A block takes deep where it holds a group of kDeep tiles for every
+// warp and, under a cluster, the product holds two such groups a warp
+// for each block (the split by k steps hands the middle blocks fewer
+// tiles than the average, and the cluster waits for its slowest block);
+// else pairs.  So the long products take deep: the step kernels'
+// clustered windows from 2^16 bits, correct_kernel from 2^16 bits, and
+// mul_batch_kernel and barrett_kernel from 2^15 bits at cluster 1; at
+// 2^15 bits the step and correct products, clipped to the lanes'
+// lengths, leave most blocks fewer than kDeep * kWarps tiles.  A block
+// that takes deep counts itself in deep_blocks, which the host reads
+// with digit_deep_blocks (kernels/digitmma.py deep_blocks); the pair
+// loop's blocks, ~10^6 a call at 2^15 bits, count nothing.  Both forms
+// fit the kernels' 64 registers a thread at two 512-thread blocks an SM
+// (deep spills nothing; one block an SM with 128 registers ran it
+// 1.2-1.3x slower).  What bounds them, on an H100 (clock64 in a scratch copy):
+// mma.sync.m16n8k32 u8 reaches 0.59 mma a cycle an SM with its operands
+// in registers (64% of the int8 peak) and 16% of the peak with 6
+// dependent shared loads an mma; the pair loop ran a full-window 2^18
+// step block at 0.074 mma a cycle, bound by its shared loads, and the
+// deep loop runs it at 0.20, about 69% of a block's half of mma.sync's
+// rate.  Past that, the products need wgmma.
 // Thread (g, t) of a warp holds C[g, 2t], C[g, 2t + 1] (and row g + 8):
 // digit columns 2j and 2j + 1 of limb column j, so it folds them into
 // col16[j] = c0 + c1 * 2^8 itself.
@@ -61,6 +93,8 @@ constexpr int kTileRows = 16;    // rows of a tile (m)
 constexpr int kKStep = 32;       // digits of k per mma (k)
 constexpr int kKChunk = 8192;    // digits of k between s32 flushes
 constexpr int kGroup = 2;        // row tiles per B fragment
+constexpr int kDeep = 4;         // row tiles per B fragment, deep loop
+constexpr int kRing = 4 * kDeep; // A words a lane holds, deep loop
 constexpr int kAPad = 160;       // zero bytes on each side of an A operand
 constexpr int kBExtra = 80;      // zero bytes around a B operand
 constexpr int kMaxCluster = 8;
@@ -266,11 +300,182 @@ __device__ __forceinline__ void sweep_group(const unsigned char* A, int na8,
   }
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// The B fragment of a k step: w is the shared address of the aligned
+// word holding the lane's first digit, sh its offset in bits.
+__device__ __forceinline__ void load_b(uint32_t w, int sh, uint32_t (&b)[2]) {
+  b[0] = __funnelshift_r(lds32(w), lds32(w + 4), sh);
+  b[1] = __funnelshift_r(lds32(w + 16), lds32(w + 20), sh);
+}
+
+// sweep_group's column sums for kDeep row tiles per B fragment, with the
+// Toeplitz repeats of A held in registers.  Lane (g, t) reads its A
+// words 16 bytes apart: word x at A's byte (16 tg + g) * 8 + k_start +
+// 4t + 16x, and tile j at k step s takes x = 8j + 2s + {0, 4, 1, 5} as
+// its fragment (a[0..3]).  So a word serves tile j at step s and tile
+// j - 1 at step s + 4 (the next tile is 128 bytes on), and a[0], a[2]
+// at step s + 2 are a[1], a[3] at step s.  Steps of one parity share
+// their words: a pass over the even steps, then one over the odd ones,
+// holds the kRing words x = 2s + 4m + e (m < 2 kDeep, e < 2) in a ring
+// of registers and loads the two new ones a step, with the step's B
+// fragment (4 words): 6 shared loads for kDeep mma.  The passes cover
+// the steps where every tile of the group is busy, with no per-tile
+// test; the ends of the tiles' k ranges (where the group's tiles start
+// and stop apart) and groups of fewer than kDeep tiles run one step at
+// a time, each tile where its range meets the step.  The s32 sums are
+// flushed into col itself (each column has one writer) at least every
+// kKChunk digits of k.
+__device__ __forceinline__ void sweep_deep(const unsigned char* A, int na8,
+                                           const unsigned char* Bv, int nb8,
+                                           int n_cols, uint64_t* col,
+                                           int tg, int ng) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int lo[kDeep], hi[kDeep];
+  int lo_g = INT_MAX, hi_g = INT_MIN;
+#pragma unroll
+  for (int j = 0; j < kDeep; ++j) {
+    lo[j] = 1;
+    hi[j] = 0;
+    if (j < ng) tile_range(tg + j, na8, nb8, lo[j], hi[j]);
+    if (hi[j] >= lo[j]) {
+      lo_g = min(lo_g, lo[j]);
+      hi_g = max(hi_g, hi[j]);
+    }
+  }
+  int acc[kDeep][4];
+#pragma unroll
+  for (int j = 0; j < kDeep; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+  const int c0 = (kTileRows * tg + g) * (kN / 2) + t;   // tile 0's column
+  bool flushed = false;
+  auto put = [&](bool add) {     // col (+)= the s32 sums; acc = 0
+#pragma unroll
+    for (int j = 0; j < kDeep; ++j) {
+      if (j >= ng) continue;
+      const int k = c0 + j * kTileRows * (kN / 2);
+      const uint64_t lo_c = (uint32_t)acc[j][0]
+          + ((uint64_t)(uint32_t)acc[j][1] << 8);
+      const uint64_t hi_c = (uint32_t)acc[j][2]
+          + ((uint64_t)(uint32_t)acc[j][3] << 8);
+      if (k < n_cols) col[k] = add ? col[k] + lo_c : lo_c;
+      if (k + 8 * (kN / 2) < n_cols)
+        col[k + 8 * (kN / 2)] = add ? col[k + 8 * (kN / 2)] + hi_c : hi_c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+    }
+  };
+  int cnt = 0;                   // k steps in acc since the last flush
+  auto flush = [&] {
+    put(flushed);
+    flushed = true;
+    cnt = 0;
+  };
+  if (lo_g <= hi_g) {
+    const int k_start = lo_g & ~3;
+    const int steps = ((hi_g - k_start) >> 5) + 1;
+    int first[kDeep], last[kDeep];
+    int s0 = 0, s1 = steps - 1;        // where every tile is busy
+#pragma unroll
+    for (int j = 0; j < kDeep; ++j) {
+      first[j] = hi[j] >= lo[j] ? (lo[j] - k_start) >> 5 : INT_MAX;
+      last[j] = hi[j] >= lo[j] ? (hi[j] - k_start) >> 5 : -1;
+      s0 = max(s0, first[j]);
+      s1 = min(s1, last[j]);
+    }
+    if (s0 > s1) s0 = steps;           // no such step
+    const int bidx = nb8 + 13 - g + k_start + 4 * t;
+    const uint32_t bw = smem_addr(Bv) + (bidx & ~3);
+    const int sh = 8 * (bidx & 3);
+    const uint32_t aw = smem_addr(A) + (kTileRows * tg + g) * kN + k_start
+        + 4 * t + kAPad;
+    auto edge = [&](int s) {
+      uint32_t b[2];
+      load_b(bw + kKStep * s, sh, b);
+#pragma unroll
+      for (int j = 0; j < kDeep; ++j) {
+        if (s >= first[j] && s <= last[j]) {
+          const uint32_t x = aw + 16 * (8 * j + 2 * s);
+          const uint32_t a[4] = {lds32(x), lds32(x + 64), lds32(x + 16),
+                                 lds32(x + 80)};
+          mma_u8(acc[j], a, b);
+        }
+      }
+      if (++cnt == kKChunk / kKStep) flush();
+    };
+    for (int s = 0; s < s0; ++s) edge(s);
+    for (int s = s0 > s1 ? steps : s1 + 1; s < steps; ++s) edge(s);
+#pragma unroll 1
+    for (int par = 0; par < 2; ++par) {
+      const int sp = s0 + par;         // the pass's first step
+      if (sp > s1) break;
+      const int n = (s1 - sp) / 2 + 1;
+      // ring slot (2m + e) % kRing holds word x = 2 sp + 4m + e, m taken
+      // from the start of the current round of kRing / 2 steps
+      uint32_t R[kRing];
+      uint32_t as = aw + 32 * sp, bs = bw + kKStep * sp;
+#pragma unroll
+      for (int m = 0; m < kRing / 2 - 1; ++m) {
+        R[2 * m] = lds32(as + 64 * m);
+        R[2 * m + 1] = lds32(as + 64 * m + 16);
+      }
+      // step i of a round of kRing / 2: its two new A words, its B
+      // fragment, kDeep mma from the ring
+      auto step = [&](int i) {
+        const int m = i + kRing / 2 - 1;            // tile kDeep-1's a[1]
+        R[(2 * m) % kRing] = lds32(as + 64 * m);
+        R[(2 * m + 1) % kRing] = lds32(as + 64 * m + 16);
+        uint32_t b[2];
+        load_b(bs + 2 * kKStep * i, sh, b);
+#pragma unroll
+        for (int j = 0; j < kDeep; ++j) {
+          const int r = 2 * (2 * j + i);
+          const uint32_t a[4] = {R[r % kRing], R[(r + 2) % kRing],
+                                 R[(r + 1) % kRing], R[(r + 3) % kRing]};
+          mma_u8(acc[j], a, b);
+        }
+      };
+      // whole rounds have no branch inside, so that the compiler can
+      // issue a step's loads under the previous step's mma
+      for (int q = 0; q < n; q += kRing / 2) {
+        if (cnt > kKChunk / kKStep - kRing / 2) flush();
+        cnt += kRing / 2;
+        if (n - q >= kRing / 2) {
+#pragma unroll
+          for (int i = 0; i < kRing / 2; ++i) step(i);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kRing / 2; ++i)
+            if (i < n - q) step(i);
+        }
+        as += 64 * (kRing / 2);
+        bs += 2 * kKStep * (kRing / 2);
+      }
+    }
+  }
+  put(flushed);
+}
+
+// Block products that ran the deep loop on this card since the host
+// last read them (digit_deep_blocks); one count a library.
+__device__ unsigned long long deep_blocks;
+
 // Limb column sums col[0, n_cols) of a * b (A and B layouts of na8 and
 // nb8 digits) over this block's share of the row tiles; every thread of
 // the block calls it.  Column j < n_cols is written by exactly one
-// block of the cluster.  Not inlined: the mma loop then gets its own
-// register allocation (measured faster on the card than inlined).
+// block of the cluster.  The block picks its main loop (the head of
+// this file) and counts deep in deep_blocks.  Not inlined: the mma loop
+// then gets its own register allocation (measured faster on the card
+// than inlined).
 __device__ __noinline__ void digit_product(const unsigned char* A, int na8,
                                      const unsigned char* Bv, int nb8,
                                      int n_cols, uint64_t* col, Block& st,
@@ -289,9 +494,13 @@ __device__ __noinline__ void digit_product(const unsigned char* A, int na8,
   }
   __syncthreads();
   const int t0 = st.sched[0], t1 = st.sched[1];
-  // kGroup tiles per B fragment, or single tiles where a block has no
-  // more tiles than warps, so that every warp has one
-  const int gsz = t1 - t0 > kWarps ? kGroup : 1;
+  // kDeep tiles per B fragment for a long product, else kGroup, or
+  // single tiles where a block has no more tiles than warps, so that
+  // every warp has one
+  const bool deep = t1 - t0 >= kDeep * kWarps
+      && (cs == 1 || tiles >= 2 * kDeep * kWarps * cs);
+  const int gsz = deep ? kDeep : t1 - t0 > kWarps ? kGroup : 1;
+  if (deep && threadIdx.x == 0) atomicAdd(&deep_blocks, 1ull);
   const int groups = (t1 - t0 + gsz - 1) / gsz;
   const int lane = threadIdx.x & 31;
   for (;;) {
@@ -302,7 +511,10 @@ __device__ __noinline__ void digit_product(const unsigned char* A, int na8,
     gi = groups - 1 - gi;          // the heavier high tiles of a truncated
                                    // product start first
     const int tg = t0 + gi * gsz;
-    sweep_group(A, na8, Bv, nb8, n_cols, col, tg, min(gsz, t1 - tg));
+    if (gsz == kDeep)
+      sweep_deep(A, na8, Bv, nb8, n_cols, col, tg, min(gsz, t1 - tg));
+    else
+      sweep_group(A, na8, Bv, nb8, n_cols, col, tg, min(gsz, t1 - tg));
   }
   __syncthreads();
 }
@@ -641,3 +853,17 @@ cudaError_t launch_packed(int batch, int lanes, int threads, size_t bytes,
 }
 
 }  // namespace digitmma
+
+// The current card's deep_blocks into *out, zeroed after the read, in
+// order on `stream`; returns once the read has landed.
+extern "C" int digit_deep_blocks(unsigned long long* out, void* stream) {
+  static const unsigned long long zero = 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemcpyFromSymbolAsync(
+      out, digitmma::deep_blocks, sizeof zero, 0, cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(digitmma::deep_blocks, &zero, sizeof zero,
+                                  0, cudaMemcpyHostToDevice, s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return (int)err;
+}

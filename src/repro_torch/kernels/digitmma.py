@@ -16,7 +16,9 @@ B[k, c] = b8[c - k] a Toeplitz band of b, the same for every row;
 neither is written out.  Rows come in tiles of 16 (the m of the mma),
 k in steps of 32 (its k); each tile's k range is clipped to where its
 window of a is nonzero.  A warp sweeps GROUP row tiles per B fragment
-where its block has more tiles than warps, else one.
+where its block has more tiles than warps, else one; or DEEP, holding
+the Toeplitz repeats of A in registers, where the block's share of a
+long product picks the deep loop (`main_loop`).
 The s32 tile sums are flushed into 64-bit sums every K_CHUNK digits of
 k, then digit columns fold into limb columns: col16[j] = c8[2j] +
 c8[2j+1] * 2^8.
@@ -44,11 +46,13 @@ test-only: nothing on the main path calls them.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
+from . import build
 from .build import SMEM_BYTES
 from .ops import resolve_columns
 
@@ -58,6 +62,8 @@ K_STEP = 32           # digits of k per mma (the k)
 K_CHUNK = 8192        # digits of k between flushes of the s32 sums
 GROUP = 2             # row tiles a warp sweeps per B fragment, where a
 WARPS = 16            # block has more tiles than warps (else 1)
+DEEP = 4              # row tiles per B fragment in the deep main loop,
+                      # where a block has at least DEEP * WARPS tiles
 SMS = 132             # streaming multiprocessors of an H100 SXM
 MAX_CLUSTER = 8       # the portable cluster size limit
 # dynamic shared memory a block of the two kernels may ask for: Hopper's
@@ -77,9 +83,8 @@ assert K_CHUNK <= S32_TERMS
 PACK_TEAMS = ((272, 1), (528, 2), (1040, 4))
 PACK_WINDOW = PACK_TEAMS[-1][0]
 PACK_WINDOW_SPARSE = 144
-
 # the cluster size each kernel's last launch used (after the launch's
-# residency check), and its instances a block (1 where clustered), by
+# residency check) and its instances a block (1 where clustered), by
 # kernel name (`fused._launch` records both)
 last_cluster: dict[str, int] = {}
 last_lanes: dict[str, int] = {}
@@ -177,6 +182,44 @@ def step_plan(win: int, batch: int, sms: int, lane_bytes: int,
     warps = next(w for top, w in PACK_TEAMS if win <= top)
     lanes = min(threads // (32 * warps), DYNAMIC_SMEM_BYTES // lane_bytes)
     return StepPlan(warps, lanes) if lanes else None
+
+
+def main_loop(n_cols: int, cs: int, block_tiles: int) -> str:
+    """The main loop a block of a clustered digit-GEMM kernel runs, by
+    the rule of csrc/digitmma.cuh digit_product: "deep" (DEEP row tiles
+    a B fragment, A's Toeplitz repeats in registers; sweep_deep) or
+    "pair" (GROUP tiles a fragment, every A word loaded at each use).
+    Deep where the block's share of the product's row tiles
+    (`block_tiles`, by split_tiles) holds a group of DEEP for every warp
+    and, under a cluster of cs blocks, the product's n_cols limb columns
+    hold two such groups a warp for each block: the split by k steps
+    hands the middle blocks fewer tiles than the average, and the
+    cluster waits for its slowest block.  On an H100 at 2^15-2^18 bits
+    the deep loop took 0.53-0.94 of the pair loop's time where this
+    holds with k from 256 limbs, 1.007-1.013 at k = 16-64 limbs (a
+    product that wide with an operand that short is rare: no test of k
+    is made), and 0.99-1.07 at one group a warp under clusters of 4 and
+    8 (PERF.md).  The card counts the blocks that ran deep
+    (`deep_blocks`)."""
+    tiles = -(-n_cols // (TILE_ROWS * N // 2))
+    deep = block_tiles >= DEEP * WARPS and (
+        cs == 1 or tiles >= 2 * DEEP * WARPS * cs)
+    return "deep" if deep else "pair"
+
+
+def deep_blocks(name: str, device) -> int:
+    """The block products that the kernels of library `name` ("mul",
+    "step", "correct", "barrett") ran with the deep main loop on `device`
+    since the last call (the launches' other block products ran pairs):
+    the card's own count (csrc/digitmma.cuh digit_deep_blocks), zeroed
+    by the read, which waits for the device's current stream."""
+    out = ctypes.c_ulonglong()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(build.lib(name).digit_deep_blocks(ctypes.byref(out),
+                                                      stream),
+                    f"{name} digit_deep_blocks")
+    return out.value
 
 
 @functools.cache

@@ -892,6 +892,188 @@ def test_staging_fits_the_paper_range(dev):
         assert step(MA.barrett_width(m)) <= D.DYNAMIC_SMEM_BYTES
 
 
+# -- the deep main loop (csrc/digitmma.cuh sweep_deep): each block of a
+# digit-GEMM kernel picks its loop (digitmma.main_loop, the same rule)
+# and the card counts the blocks that ran deep (digitmma.deep_blocks) --
+
+def _mul_block_loops(wu, wv, wo, cs):
+    """The main loop digitmma.main_loop gives each block of a mul_batch
+    instance: every lane stages min(w, wo) limbs of each operand, the
+    longer as A, and its blocks split the row tiles by split_tiles."""
+    from repro_torch.kernels import digitmma as D
+    na, nb = sorted((min(wu, wo), min(wv, wo)), reverse=True)
+    n_cols = min(wo, na + nb)
+    tiles = -(-n_cols // 64)
+    bounds = D.split_tiles([D.tile_weight(t, 2 * na, 2 * nb)
+                            for t in range(tiles)], cs)
+    return [D.main_loop(n_cols, cs, bounds[r + 1] - bounds[r])
+            for r in range(cs)]
+
+
+# (batch, wu, wv, wo): batch GCD's squares at its 2^18- and 2^17-bit
+# levels; 2^16 x 2^16 bits at clusters 1, 2 and 8; a k range across the
+# s32 flush (8,192 digits); B under one k step (7 limbs, nb8 = 14); one
+# row tile; columns cut off a tile edge; deep at clusters 2 and 8
+DEEP_MULS = [(132, 4096, 4096, 8192), (132, 2048, 2048, 4096),
+             (66, 4096, 4096, 8192), (16, 4096, 4096, 8192),
+             (132, 8192, 8192, 16384), (132, 5000, 7, 5007),
+             (132, 16, 16, 32), (132, 8192, 4100, 12000),
+             (66, 8192, 8192, 16384), (16, 32768, 32768, 65536)]
+
+
+@pytest.mark.parametrize("batch,wu,wv,wo", DEEP_MULS)
+def test_mul_kernel_deep_loop_matches_pair_and_plain(dev, batch, wu, wv,
+                                                     wo):
+    """mul_batch_kernel equals the plain product bit for bit, and as many
+    of its blocks ran the deep loop as digitmma.main_loop gives (the
+    card's count): deep at batch GCD's squares, across the s32 flush, on
+    truncated columns, with B under one k step and at clusters 1, 2 and
+    8, pairs at the small shapes and the clusters whose blocks hold too
+    few tiles."""
+    from repro_torch.kernels import bigmul, digitmma as D
+    u, v = _lanes(batch, wu, wu + batch, dev), _lanes(batch, wv, wv, dev)
+    D.deep_blocks("mul", dev)
+    got = bigmul.mul_batch_cuda(u, v, wo)
+    cs = D.last_cluster["mul_batch"]
+    assert cs == D.cluster_size(batch, D.device_sms(dev))
+    assert D.deep_blocks("mul", dev) == batch * _mul_block_loops(
+        wu, wv, wo, cs).count("deep")
+    assert torch.equal(got, K.mul_plain(u, v, wo))
+    for x, y, z in zip(*(bi.batch_to_ints(t[:4]) for t in (u, v, got))):
+        assert z == x * y % B ** wo
+
+
+def test_mul_kernel_loops_cover_both_forms_and_clusters():
+    """DEEP_MULS runs the deep loop at clusters 1, 2 and 8 and the pair
+    loop beside it (by digitmma.main_loop, which the test above holds
+    the card to)."""
+    from repro_torch.kernels import digitmma as D
+    seen = set()
+    for batch, wu, wv, wo in DEEP_MULS:
+        cs = D.cluster_size(batch)
+        seen |= {(loop, cs) for loop in _mul_block_loops(wu, wv, wo, cs)}
+    assert {("deep", 1), ("deep", 2), ("deep", 8), ("pair", 1)} <= seen
+
+
+# (full_w, win, batch, loop): the 2^15-, 2^16- and 2^18-bit cells' full
+# windows at cluster 1, and 2^18 at clusters 2 and 8 (one tile group a
+# warp: pairs); "deep" where some block products take the deep loop
+DEEP_STEPS = [(2056, 2056, 264, "deep"), (4104, 4104, 132, "deep"),
+              (16392, 16392, 132, "deep"), (16392, 16392, 66, "deep"),
+              (16392, 16392, 16, "pair")]
+
+
+@pytest.mark.parametrize("full_w,win,batch,rule", DEEP_STEPS)
+def test_step_kernels_deep_loop_match_pair_and_plain(dev, full_w, win,
+                                                     batch, rule):
+    """The clustered powdiff and update equal the plain versions bit for
+    bit on lanes of every branch of the step; the card's count shows
+    deep block products where `rule` is "deep" (the lanes whose products
+    are short keep pairs) and none where it is "pair"."""
+    from repro_torch.kernels import digitmma as D
+    st = _step_lanes(batch, full_w, win, full_w + batch, dev)
+    pd = (st["v"], st["w"], st["hpd"], st["lpd"], st["s"])
+    D.deep_blocks("step", dev)
+    s, x = F.powdiff_cuda(*pd, win=win)
+    out = F.update_cuda(st["w"], x, s, st["h"], st["m"], st["active"],
+                        win=win)
+    n = D.deep_blocks("step", dev)
+    assert D.last_lanes["powdiff"] == D.last_lanes["update"] == 1
+    assert n <= 2 * batch * D.last_cluster["update"]
+    assert (n > 0) == (rule == "deep"), n
+    sp, xp = F.powdiff_reference(*pd, win=win)
+    assert torch.equal(s, sp) and torch.equal(x, xp)
+    assert torch.equal(out, F.update_reference(
+        st["w"], xp, sp, st["h"], st["m"], st["active"], win=win))
+
+
+@pytest.mark.parametrize("m,batch,rule", [
+    (2048, 264, "deep"), (4096, 132, "deep"), (16384, 132, "deep"),
+    (16384, 66, "deep"), (16384, 16, "pair")])
+def test_correct_kernel_deep_loop_matches_pair_and_plain(dev, m, batch,
+                                                         rule):
+    """correct_kernel equals the plain version and Python's divmod; the
+    card's count shows deep block products where `rule` is "deep" (lanes
+    whose products are short keep pairs) and none where it is "pair"."""
+    from repro_torch.kernels import digitmma as D
+    t, us, vs, lams = _correct_operands(batch, m, m + batch, dev)
+    D.deep_blocks("correct", dev)
+    _check_correct(t, us, vs, lams)
+    n = D.deep_blocks("correct", dev)
+    assert n <= 2 * batch * D.last_cluster["correct"]  # two products a block
+    assert (n > 0) == (rule == "deep"), n
+
+
+@pytest.mark.parametrize("batch", [132, 16])
+def test_barrett_kernel_deep_loop_matches_pair_and_plain(dev, batch):
+    """barrett_kernel at a 2^16-bit modulus equals the plain reduction:
+    its two products run deep at cluster 1 (132 lanes) and in pairs at
+    cluster 8 (16 lanes, too few tiles a block), by the card's count."""
+    from repro_torch.kernels import digitmma as D
+    x, mu, v, h, (xs, vs) = _barrett_lanes(4096, dev)
+    reps = -(-batch // x.shape[0])
+    x, mu, v = (t.repeat(reps, 1)[:batch].contiguous() for t in (x, mu, v))
+    D.deep_blocks("barrett", dev)
+    got = F.barrett_cuda(x, mu, v, h=h)
+    n = D.deep_blocks("barrett", dev)
+    cs = D.last_cluster["barrett"]
+    assert n <= 2 * batch * cs
+    assert (n > 0) == (cs == 1), n
+    assert torch.equal(got, F.barrett_branches(x, mu, v, h=h)[0])
+
+
+@pytest.mark.parametrize("m,batch", [(16384, 16384), (2048, 131072)])
+def test_cells_long_launches_take_the_deep_loop(dev, monkeypatch, m, batch):
+    """A division at each division cell's size (2^18 bits x 16,384 and
+    2^15 bits x 131,072 lanes), by the card's count for each launch:
+    every step launch at a window up to PACK_WINDOW runs packed, with no
+    digit_product block; the clustered launches run most of their blocks'
+    products deep where their window (W for the finalization) is 4,096
+    limbs or more (2^18 bits' windows from 4,112 and its finalization),
+    and most in pairs below (2^18 bits' window of 2,064, 2^15 bits'
+    windows of 2,056 and finalization), whose products, clipped to the
+    lanes' lengths, leave a block fewer than DEEP * WARPS row tiles;
+    sampled lanes exact."""
+    from repro_torch.kernels import digitmma as D
+    libs = {"powdiff": "step", "update": "step", "correct": "correct"}
+    seen, launch = [], F._launch
+
+    def record(lib, kernel, like, ts, dims, **kw):
+        launch(lib, kernel, like, ts, dims, **kw)
+        if kernel in libs:
+            seen.append((kernel, dims[2] if kernel != "correct" else None,
+                         D.last_lanes[kernel], D.last_cluster[kernel],
+                         D.deep_blocks(libs[kernel], dev)))
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    u = torch.randint(0, B, (batch, m), generator=g, device=dev,
+                      dtype=torch.int32)
+    u[:, m - 2:] = 0
+    v = torch.randint(0, B, (batch, m), generator=g, device=dev,
+                      dtype=torch.int32)
+    lens = torch.randint(2, m // 2 + 1, (batch, 1), generator=g, device=dev)
+    v[torch.arange(m, device=dev) >= lens] = 0
+    for name in set(libs.values()):
+        D.deep_blocks(name, dev)
+    monkeypatch.setattr(F, "_launch", record)
+    q, r = S.divmod_batch(u, v)
+    torch.cuda.synchronize()
+    wins = {w for k, w, _, _, _ in seen if k != "correct"}
+    assert min(wins) <= D.PACK_WINDOW < max(wins)
+    for kernel, win, lanes, cs, n in seen:
+        if win is not None and win <= D.PACK_WINDOW:
+            assert lanes > 1 and n == 0, (kernel, win, n)
+        else:
+            products = batch * cs * (2 if kernel == "correct" else 1)
+            assert (2 * n > products) == ((win or m) >= 4096), \
+                (kernel, win, n, products)
+    lanes = [0, 1, batch // 2, batch - 1]
+    for x, y, qq, rr in zip(*(bi.batch_to_ints(t[lanes])
+                              for t in (u, v, q, r))):
+        assert (qq, rr) == divmod(x, y)
+
+
 @pytest.mark.parametrize("m", [2048, 8192])
 def test_modarith_paper_moduli_launch_counts(dev, m):
     """reduce 1, modmul 2 and a 16-bit-exponent modexp's launches at a
